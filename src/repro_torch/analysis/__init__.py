@@ -1,0 +1,19 @@
+"""Runtime contract checks of the port (numpy only)."""
+
+from .contracts import (
+    ContractViolation,
+    check_hop_matrix,
+    check_path_system,
+    check_path_system_batch,
+    checks_enabled,
+    set_check_enabled,
+)
+
+__all__ = [
+    "ContractViolation",
+    "check_hop_matrix",
+    "check_path_system",
+    "check_path_system_batch",
+    "checks_enabled",
+    "set_check_enabled",
+]

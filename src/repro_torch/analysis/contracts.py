@@ -1,0 +1,452 @@
+"""Runtime contract validators for the solver data structures.
+
+Every scale rung of this repo rests on *representation invariants* that no
+type system checks: directed-slot ids bounded by ``n_slots`` (which doubles
+as the padding sentinel), the batch padding discipline (padded slots carry
+infinite capacity == zero inverse, padded path rows belong to a
+zero-demand dummy commodity), ``row_map`` injectivity for warm starts, the
+canonical (length, lexicographic) tie order that makes delta updates
+bit-identical to rebuilds, and the int16 ``INT16_INF`` distance sentinel.
+This module checks them *at the boundaries where the structures are made*
+— ``build_path_system`` / ``update_path_system`` /
+``PathSystemBatch.from_systems`` / ``from_shared`` / ``sim.simulate`` —
+behind ``REPRO_CHECK=1`` (see ``repro_torch.env``; the tier-1 test suite
+turns it on by default via ``conftest.py``).
+
+Port copy of the part of ``repro/analysis/contracts.py`` that the capacity
+path calls (numpy only, unchanged): the path-system, hop-matrix and batch
+checks.  The delta, built-batch and simulator checks wait for the modules
+they guard.
+
+Validators are pure numpy and duck-typed over the dataclasses, so this
+module imports none of the solver modules (they import *us* at module
+level) and can run on hand-built fixtures.  A violated contract raises
+``ContractViolation`` (an ``AssertionError`` subclass) whose message names
+the producing boundary, the field, and the first offending index.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import env
+
+__all__ = [
+    "ContractViolation",
+    "check_hop_matrix",
+    "check_path_system",
+    "check_path_system_batch",
+    "checks_enabled",
+    "set_check_enabled",
+]
+
+#: Canonical int16 unreachable sentinel.  Duplicated from ``core.metrics``
+#: (exactly as ``kernels.ops`` does) so this module stays import-cycle-free:
+#: ``core.routing`` imports us at module level.
+INT16_INF = np.int16(32767)
+
+_enabled = bool(env.read("REPRO_CHECK"))
+
+
+class ContractViolation(AssertionError):
+    """A solver-boundary representation invariant does not hold."""
+
+
+def checks_enabled() -> bool:
+    """True when boundary validation is active (``REPRO_CHECK=1``)."""
+    return _enabled
+
+
+def set_check_enabled(flag: bool) -> bool:
+    """Toggle boundary validation in-process; returns the previous value.
+
+    The env var only sets the initial state (read once at import, the
+    ``repro.env`` discipline); tests flip this to exercise both modes
+    without re-importing.
+    """
+    global _enabled
+    prev, _enabled = _enabled, bool(flag)
+    return prev
+
+
+def _fail(name: str, msg: str):
+    raise ContractViolation(f"{name}: {msg}")
+
+
+# --------------------------------------------------------------------------- #
+# PathSystem
+# --------------------------------------------------------------------------- #
+
+
+def _decode_rows(pe, plen, edges, E):
+    """Per-row (tail, head) node arrays for the directed-slot convention:
+    slot e is edges[e] traversed low->high, slot e + E high->low."""
+    eid = np.where(pe < E, pe, pe - E)
+    eid = np.clip(eid, 0, max(len(edges) - 1, 0))
+    u = edges[eid, 0]
+    v = edges[eid, 1]
+    fwd = pe < E
+    tail = np.where(fwd, u, v)
+    head = np.where(fwd, v, u)
+    return tail, head
+
+
+def check_path_system(ps, top=None, *, name: str = "path_system",
+                      max_decode_rows: int = 4096) -> None:
+    """Validate a ``PathSystem``'s representation invariants.
+
+    With ``top`` given, additionally decodes a bounded prefix of path rows
+    back to node sequences and checks hop chaining, simplicity, endpoint
+    agreement with the commodity pedigree, and the canonical
+    (length, lexicographic-node-sequence) tie order that the delta ==
+    rebuild bit-exactness guarantee rests on.
+    """
+    E = int(ps.n_edges)
+    caps = np.asarray(ps.capacities)
+    S = len(caps)
+    if S != 2 * E:
+        _fail(name, f"capacities has {S} slots but n_edges={E} implies "
+                    f"n_slots=2E={2 * E} (directed-slot convention)")
+    if caps.size and (not np.all(np.isfinite(caps)) or np.any(caps <= 0)):
+        i = int(np.argmin(np.where(np.isfinite(caps), caps, -np.inf)))
+        _fail(name, f"capacities must be positive and finite; "
+                    f"capacities[{i}]={caps[i]}")
+
+    pe = np.asarray(ps.path_edges)
+    plen = np.asarray(ps.path_len)
+    owner = np.asarray(ps.path_owner)
+    if pe.ndim != 2:
+        _fail(name, f"path_edges must be rank 2, got shape {pe.shape}")
+    P, L = pe.shape
+    if len(plen) != P or len(owner) != P:
+        _fail(name, f"path_len/path_owner must have one entry per path row: "
+                    f"P={P}, len(path_len)={len(plen)}, "
+                    f"len(path_owner)={len(owner)}")
+    if np.any(plen < 0) or np.any(plen > L):
+        p = int(np.argmax((plen < 0) | (plen > L)))
+        _fail(name, f"path_len[{p}]={plen[p]} outside [0, Lmax={L}]")
+
+    hop = np.arange(L)[None, :] < plen[:, None]
+    bad = hop & ((pe < 0) | (pe >= S))
+    if bad.any():
+        p, j = map(int, np.argwhere(bad)[0])
+        _fail(name, f"path_edges[{p}, {j}]={pe[p, j]} is not a directed slot "
+                    f"id in [0, n_slots={S})")
+    bad_pad = ~hop & (pe != S)
+    if bad_pad.any():
+        p, j = map(int, np.argwhere(bad_pad)[0])
+        _fail(name, f"path_edges[{p}, {j}]={pe[p, j]} beyond "
+                    f"path_len[{p}]={plen[p]} must hold the padding sentinel "
+                    f"n_slots={S}")
+
+    K = int(ps.n_commodities)
+    if P and (np.any(owner < 0) or np.any(owner >= K)):
+        p = int(np.argmax((owner < 0) | (owner >= K)))
+        _fail(name, f"path_owner[{p}]={owner[p]} outside "
+                    f"[0, n_commodities={K})")
+    if P and np.any(np.diff(owner) < 0):
+        p = int(np.argmax(np.diff(owner) < 0))
+        _fail(name, f"path rows must be grouped by commodity in order "
+                    f"(canonical layout); path_owner[{p}]={owner[p]} > "
+                    f"path_owner[{p + 1}]={owner[p + 1]}")
+    if K and (P == 0 or np.any(np.bincount(owner, minlength=K) == 0)):
+        missing = (int(np.argmax(np.bincount(owner, minlength=K) == 0))
+                   if P else 0)
+        _fail(name, f"kept commodity {missing} has no path rows (every "
+                    "routed commodity must keep >= 1 path)")
+
+    dem = np.asarray(ps.demands)
+    if len(dem) != K:
+        _fail(name, f"demands has {len(dem)} entries for n_commodities={K}")
+    if dem.size and (not np.all(np.isfinite(dem)) or np.any(dem < 0)):
+        i = int(np.argmin(np.where(np.isfinite(dem), dem, -np.inf)))
+        _fail(name, f"demands must be finite and >= 0; demands[{i}]={dem[i]}")
+
+    ksrc = kdst = None
+    if ps.unrouted is not None and ps.src is not None and ps.dst is not None:
+        unrouted = np.asarray(ps.unrouted)
+        src = np.asarray(ps.src)
+        dst = np.asarray(ps.dst)
+        if not (len(unrouted) == len(src) == len(dst)):
+            _fail(name, f"unrouted/src/dst length mismatch: "
+                        f"{len(unrouted)}/{len(src)}/{len(dst)}")
+        if int((~unrouted).sum()) != K:
+            _fail(name, f"n_commodities={K} but {int((~unrouted).sum())} "
+                        "commodities are marked routed in `unrouted`")
+        ksrc = src[~unrouted]
+        kdst = dst[~unrouted]
+        zero_len = P and np.any(plen == 0)
+        if zero_len:
+            zp = np.flatnonzero(plen == 0)
+            k0 = owner[zp]
+            if np.any(ksrc[k0] != kdst[k0]):
+                p = int(zp[np.argmax(ksrc[k0] != kdst[k0])])
+                _fail(name, f"path row {p} has path_len=0 but its commodity "
+                            f"{owner[p]} is not a src==dst self-pair")
+
+    if ps.row_map is not None:
+        rm = np.asarray(ps.row_map)
+        if len(rm) != P:
+            _fail(name, f"row_map has {len(rm)} entries for P={P} rows")
+        if rm.size and np.any(rm < -1):
+            p = int(np.argmax(rm < -1))
+            _fail(name, f"row_map[{p}]={rm[p]} < -1 (must be -1 for fresh "
+                        "rows or a predecessor row index)")
+        live = rm[rm >= 0]
+        if live.size != len(np.unique(live)):
+            vals, cnt = np.unique(live, return_counts=True)
+            _fail(name, f"row_map must map injectively onto predecessor "
+                        f"rows; predecessor row {int(vals[np.argmax(cnt > 1)])}"
+                        " is claimed by multiple rows (warm starts would "
+                        "double-count its rate)")
+
+    if top is None or P == 0:
+        return
+
+    # ---- decode a bounded prefix and verify geometry + canonical order ---- #
+    if int(top.n_edges) != E:
+        _fail(name, f"topology has {int(top.n_edges)} edges but "
+                    f"ps.n_edges={E}")
+    edges = np.asarray(top.edges).reshape(-1, 2)
+    n_rows = P
+    if n_rows > max_decode_rows:
+        # align down to a commodity boundary so the tie-order check never
+        # sees a truncated commodity
+        n_rows = int(max_decode_rows)
+        while n_rows < P and owner[n_rows] == owner[n_rows - 1]:
+            n_rows -= 1
+    pe_s, plen_s, owner_s = pe[:n_rows], plen[:n_rows], owner[:n_rows]
+    hop_s = hop[:n_rows]
+    tail, head = _decode_rows(pe_s, plen_s, edges, E)
+
+    both = hop_s[:, :-1] & hop_s[:, 1:]
+    broken = both & (head[:, :-1] != tail[:, 1:])
+    if broken.any():
+        p, j = map(int, np.argwhere(broken)[0])
+        _fail(name, f"path row {p} does not chain: hop {j} ends at node "
+                    f"{head[p, j]} but hop {j + 1} starts at {tail[p, j + 1]}")
+
+    if ksrc is not None:
+        nz = np.flatnonzero(plen_s > 0)
+        if nz.size:
+            bad_src = tail[nz, 0] != ksrc[owner_s[nz]]
+            last = plen_s[nz] - 1
+            bad_dst = head[nz, last] != kdst[owner_s[nz]]
+            if bad_src.any() or bad_dst.any():
+                p = int(nz[np.argmax(bad_src | bad_dst)])
+                k = int(owner_s[p])
+                _fail(name, f"path row {p} runs {tail[p, 0]}->"
+                            f"{head[p, plen_s[p] - 1]} but commodity {k} is "
+                            f"({ksrc[k]}, {kdst[k]})")
+
+    # simplicity + canonical (length, lex) tie order, commodity by commodity
+    prev_key = None
+    prev_owner = -1
+    for p in range(n_rows):
+        ln = int(plen_s[p])
+        nodes = ([int(tail[p, 0])] + [int(x) for x in head[p, :ln]]
+                 if ln else [])
+        if len(set(nodes)) != len(nodes):
+            _fail(name, f"path row {p} revisits a node (paths must be "
+                        f"simple): {nodes}")
+        if ksrc is not None and ln:
+            k = int(owner_s[p])
+            # src > dst commodities store the reversed canonical-pair
+            # enumeration; compare in canonical orientation
+            seq = nodes[::-1] if int(ksrc[k]) > int(kdst[k]) else nodes
+        else:
+            seq = nodes
+        key = (ln, seq)
+        if int(owner_s[p]) == prev_owner and key < prev_key:
+            _fail(name, f"path rows of commodity {prev_owner} are not in "
+                        f"canonical (length, lexicographic) order at row "
+                        f"{p}: {key} sorts before {prev_key} (delta == "
+                        "rebuild bit-exactness depends on this order)")
+        prev_key, prev_owner = key, int(owner_s[p])
+
+
+def check_hop_matrix(dist, n: int, *, name: str = "hop_matrix") -> None:
+    """Validate the canonical int16 APSP hop matrix representation."""
+    d = np.asarray(dist)
+    if d.dtype != np.int16:
+        _fail(name, f"hop matrix must be int16 (canonical representation), "
+                    f"got {d.dtype}")
+    if d.shape != (n, n):
+        _fail(name, f"hop matrix shape {d.shape} != ({n}, {n})")
+    if n == 0:
+        return
+    if np.any(np.diag(d) != 0):
+        i = int(np.argmax(np.diag(d) != 0))
+        _fail(name, f"dist[{i}, {i}]={d[i, i]} != 0")
+    if not np.array_equal(d, d.T):
+        i, j = map(int, np.argwhere(d != d.T)[0])
+        _fail(name, f"hop matrix must be symmetric: dist[{i}, {j}]="
+                    f"{d[i, j]} != dist[{j}, {i}]={d[j, i]}")
+    off = d[~np.eye(n, dtype=bool)]
+    bad = (off < 1) | ((off >= n) & (off != INT16_INF))
+    if bad.any():
+        _fail(name, f"off-diagonal hop counts must be in [1, n) or the "
+                    f"INT16_INF={int(INT16_INF)} sentinel; found "
+                    f"{int(off[np.argmax(bad)])}")
+
+
+# --------------------------------------------------------------------------- #
+# PathSystemBatch
+# --------------------------------------------------------------------------- #
+
+
+def check_path_system_batch(batch, *, name: str = "path_system_batch",
+                            max_instances: int = 16) -> None:
+    """Validate a ``PathSystemBatch``'s padding/masking discipline.
+
+    Padded slots must be *infinite capacity* (``inv_cap == 0`` exactly,
+    masked by ``slot_valid``), padded path rows must belong to the
+    zero-demand dummy commodity and hold each instance's own ``n_slots``
+    sentinel, and the gather fan-in tables must point back at hops of the
+    slot/commodity they index.  Per-instance content is compared against
+    the first ``max_instances`` source systems (the rest are shape-checked
+    only, keeping the validator O(batch envelope)).
+    """
+    name = f"path_system_batch[{name}]"
+    pe = np.asarray(batch.path_edges)
+    owner = np.asarray(batch.path_owner)
+    dem = np.asarray(batch.demands)
+    inv = np.asarray(batch.inv_cap)
+    sval = np.asarray(batch.slot_valid)
+    n_paths = np.asarray(batch.n_paths)
+    stacked = not batch.shared
+
+    if np.any(inv[~sval] != 0.0):
+        idx = tuple(map(int, np.argwhere((inv != 0.0) & ~sval)[0]))
+        _fail(name, f"padded slot {idx} must carry infinite capacity: "
+                    f"inv_cap{list(idx)}={inv[idx]} != 0 (a finite-capacity "
+                    "phantom slot would congest the solver)")
+    if np.any(~np.isfinite(inv)) or np.any(inv[sval] <= 0.0):
+        idx = tuple(map(int, np.argwhere(
+            ~np.isfinite(inv) | (sval & (inv <= 0.0)))[0]))
+        _fail(name, f"valid slot {idx} must have finite positive inv_cap; "
+                    f"got {inv[idx]}")
+
+    if stacked:
+        if pe.ndim != 3 or owner.ndim != 2:
+            _fail(name, f"stacked batch needs rank-3 path_edges / rank-2 "
+                        f"path_owner; got {pe.shape} / {owner.shape}")
+        B, P, L = pe.shape
+        K = dem.shape[1] - 1
+        if np.any(dem[:, K] != 0.0):
+            i = int(np.argmax(dem[:, K] != 0.0))
+            _fail(name, f"dummy commodity column must be zero-demand; "
+                        f"demands[{i}, {K}]={dem[i, K]}")
+        if np.any(owner < 0) or np.any(owner > K):
+            i, p = map(int, np.argwhere((owner < 0) | (owner > K))[0])
+            _fail(name, f"path_owner[{i}, {p}]={owner[i, p]} outside "
+                        f"[0, dummy={K}]")
+        if np.any(n_paths < 0) or np.any(n_paths > P):
+            i = int(np.argmax((n_paths < 0) | (n_paths > P)))
+            _fail(name, f"n_paths[{i}]={n_paths[i]} outside [0, P={P}]")
+        for i, ps in enumerate(batch.systems[:max_instances]):
+            Si = ps.n_slots
+            if not (np.all(sval[i, :Si]) and not np.any(sval[i, Si:])):
+                _fail(name, f"slot_valid[{i}] must mask exactly the first "
+                            f"n_slots={Si} slots")
+            if Si and not np.array_equal(
+                inv[i, :Si], (1.0 / np.asarray(ps.capacities,
+                                               np.float32)).astype(np.float32)
+            ):
+                _fail(name, f"inv_cap[{i}] does not equal 1/capacities of "
+                            f"source system {i}")
+            pb = ps.n_paths
+            if int(n_paths[i]) != pb:
+                _fail(name, f"n_paths[{i}]={int(n_paths[i])} but source "
+                            f"system has {pb} paths")
+            if np.any(owner[i, pb:] != K):
+                p = pb + int(np.argmax(owner[i, pb:] != K))
+                _fail(name, f"padded row {p} of instance {i} must belong to "
+                            f"the dummy commodity {K}; path_owner[{i}, {p}]="
+                            f"{owner[i, p]}")
+            if np.any(pe[i, pb:, :] != Si):
+                p, j = map(int, np.argwhere(pe[i, pb:, :] != Si)[0])
+                _fail(name, f"padded row {pb + p} of instance {i} must hold "
+                            f"the instance sentinel n_slots={Si}; "
+                            f"path_edges[{i}, {pb + p}, {j}]="
+                            f"{pe[i, pb + p, j]}")
+            if pb:
+                sb = np.asarray(ps.path_edges)
+                lb = sb.shape[1]
+                if not np.array_equal(pe[i, :pb, :lb], sb):
+                    _fail(name, f"instance {i} path_edges differ from its "
+                                "source system")
+                if np.any(pe[i, :pb, lb:] != Si):
+                    _fail(name, f"instance {i} rows must pad columns beyond "
+                                f"L={lb} with the sentinel {Si}")
+                if not np.array_equal(owner[i, :pb],
+                                      np.asarray(ps.path_owner)):
+                    _fail(name, f"instance {i} path_owner differs from its "
+                                "source system")
+            ki = ps.n_commodities
+            if not np.array_equal(dem[i, :ki],
+                                  np.asarray(ps.demands, np.float32)):
+                _fail(name, f"instance {i} demands differ from its source "
+                            "system")
+            if np.any(dem[i, ki:] != 0.0):
+                _fail(name, f"instance {i} demand columns beyond "
+                            f"n_commodities={ki} must be zero (padding "
+                            "commodities must not attract flow)")
+    else:
+        ps = batch.systems[0]
+        if pe.ndim != 2:
+            _fail(name, f"shared batch needs rank-2 path_edges; got "
+                        f"{pe.shape}")
+        P, L = pe.shape
+        if not np.array_equal(pe, np.asarray(ps.path_edges, np.int32)):
+            _fail(name, "shared path_edges differ from the source system")
+        if dem.ndim != 2 or dem.shape[1] != ps.n_commodities:
+            _fail(name, f"shared-batch demands must be "
+                        f"(B, {ps.n_commodities}); got {dem.shape}")
+        if np.any(~np.isfinite(dem)) or np.any(dem < 0):
+            i, k = map(int, np.argwhere(~np.isfinite(dem) | (dem < 0))[0])
+            _fail(name, f"demands[{i}, {k}]={dem[i, k]} must be finite and "
+                        ">= 0")
+        if np.any(n_paths != ps.n_paths):
+            _fail(name, "shared batch n_paths must all equal the source "
+                        f"system's {ps.n_paths}")
+
+    # gather fan-in tables: every non-sentinel pointer must point back at a
+    # hop of the slot (row of the commodity) it is indexed under
+    if batch.slot_gather is not None:
+        tab = np.asarray(batch.slot_gather)
+        flat = (pe.reshape(pe.shape[0], -1) if stacked
+                else np.broadcast_to(pe.reshape(-1)[None],
+                                     (1, pe.size)))
+        tabs = tab if stacked else tab[None]
+        PL = flat.shape[1]
+        if np.any(tabs < 0) or np.any(tabs > PL):
+            idx = tuple(map(int, np.argwhere((tabs < 0) | (tabs > PL))[0]))
+            _fail(name, f"slot_gather{list(idx)}={tabs[idx]} outside "
+                        f"[0, P*L={PL}]")
+        nb = min(tabs.shape[0], max_instances)
+        for i in range(nb):
+            s_idx, d_idx = np.nonzero(tabs[i] < PL)
+            if s_idx.size and np.any(flat[i, tabs[i, s_idx, d_idx]] != s_idx):
+                j = int(np.argmax(flat[i, tabs[i, s_idx, d_idx]] != s_idx))
+                _fail(name, f"slot_gather[{i}, {int(s_idx[j])}, "
+                            f"{int(d_idx[j])}] points at a hop of slot "
+                            f"{int(flat[i, tabs[i, s_idx[j], d_idx[j]]])}")
+    if batch.owner_gather is not None:
+        tab = np.asarray(batch.owner_gather)
+        own = owner if stacked else np.broadcast_to(owner[None],
+                                                    (1, owner.shape[0]))
+        tabs = tab if stacked else tab[None]
+        Pmax = own.shape[1]
+        if np.any(tabs < 0) or np.any(tabs > Pmax):
+            idx = tuple(map(int, np.argwhere((tabs < 0) | (tabs > Pmax))[0]))
+            _fail(name, f"owner_gather{list(idx)}={tabs[idx]} outside "
+                        f"[0, P={Pmax}]")
+        nb = min(tabs.shape[0], max_instances)
+        for i in range(nb):
+            k_idx, d_idx = np.nonzero(tabs[i] < Pmax)
+            if k_idx.size and np.any(own[i, tabs[i, k_idx, d_idx]] != k_idx):
+                j = int(np.argmax(own[i, tabs[i, k_idx, d_idx]] != k_idx))
+                _fail(name, f"owner_gather[{i}, {int(k_idx[j])}, "
+                            f"{int(d_idx[j])}] points at a row of commodity "
+                            f"{int(own[i, tabs[i, k_idx[j], d_idx[j]]])}")

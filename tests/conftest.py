@@ -1,0 +1,10 @@
+# Registers the marker of tests that need an NVIDIA GPU with CUDA (the
+# port's hand-written kernels have no CPU mode).  Such tests skip with a
+# reason, decided inside a fixture, where no GPU is present.
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU with CUDA and nvcc (the port's kernels)",
+    )
