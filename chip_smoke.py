@@ -18,20 +18,24 @@ one JSON line per phase:
                wrapper's per-call stream time from CUDA events beside it).
 3. ``apsp``    APSP of a seeded RRG(8192, 48 ports, degree 36) through
                ``apsp_minplus_blocked`` on the card, equal to the host BFS.
-4. ``probe``   the full-width probe: ``supports_full_capacity`` on the
-               equipment of a k=24 fat-tree (720 switches x 24 ports) with
-               4320 servers, 3 traffic matrices, 500 iterations, the batched
-               dense kernel; the same solve with the ``gather`` backend; and
-               one sequential ``alpha_of`` (the single-incidence kernel).
+4. ``probe``   the full-width probe: ``capacity.probe_full_capacity`` (the
+               body of ``supports_full_capacity``, returning the solves
+               behind its verdict) on the equipment of a k=24 fat-tree
+               (720 switches x 24 ports) with 4320 servers, 3 traffic
+               matrices, 500 iterations, the batched dense kernel; then the
+               probe's solve alone with ``dense`` and with ``gather``.
                Path systems built on the card equal those built on the CPU.
+   ``alpha_of``  one sequential ``alpha_of`` (the single-incidence kernel).
 5. ``bisection``  a whole ``max_servers_at_full_capacity`` search with
                ``method="mw"`` at the k=24 equipment (k=16 when the probe
                shows it would not fit the time budget), plus a small
                bisection whose count must equal the CPU run's.
-6. ``kernels`` per kernel: launches on the main path (phases 4 and 5, with
-               the counts set to 0 just before each and read just after; all
-               must be > 0), largest difference from the plain version, and
-               the times of phase 2 beside the card's bound for the work.
+6. ``kernels`` per kernel: launches on each path (the probe, ``alpha_of``
+               and the bisection, each run with the counts set to 0 just
+               before it and read just after; each kernel must be launched
+               by the paths that use it), largest difference from the plain
+               version, and the times of phase 2 beside the card's bound
+               for the work.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -49,10 +53,11 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-#: Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s
-#: and FP32 operations/s on the CUDA cores.
+#: Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s,
+#: and the CUDA cores' FP32 rate as instructions issued per second (the
+#: 67 TFLOP/s peak counts a fused multiply-add as two operations).
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_INSTR_PER_S = 67e12 / 2
 
 #: Fig 1c probe size: the equipment of a k=24 fat-tree (720 switches of 24
 #: ports, 3456 servers in the fat-tree) hosting 1.25x the servers.
@@ -76,9 +81,12 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_instr: float) -> tuple[float, str]:
+    """The least time for the work: bytes moved over the HBM rate, or FP32
+    instructions (an FMA, an add and a min are one each) over the issue
+    rate, whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_instr / FP32_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -103,15 +111,11 @@ def main() -> None:
         build_path_system,
         fattree_equipment,
         jellyfish,
-        mw_concurrent_flow_batch,
         random_permutation_traffic,
     )
     from repro_torch.core.flow import _empty_path_system, dense_incidence
     from repro_torch.core.metrics import apsp_hops_blocked
-    from repro_torch.core.routing import (
-        clear_routing_cache,
-        set_admission_backend,
-    )
+    from repro_torch.core.routing import clear_routing_cache
     from repro_torch.kernels import _build, admission as adm_mod, ops
     from repro_torch.kernels.admission import admission, admission_ref
     from repro_torch.kernels.congestion import congestion, congestion_ref
@@ -192,7 +196,6 @@ def main() -> None:
                                                    c.clone(), p.clone()))
         return plain_admission(d, r, c, p)
 
-    set_admission_backend("kernel")
     adm_mod.admission = recording_admission
     try:
         clear_routing_cache()
@@ -213,6 +216,7 @@ def main() -> None:
     want = minplus_ref(d0, d0)
     check(torch.equal(got, want), "min-plus kernel differs from plain")
     n = d0.shape[0]
+    # an add and a min per (i, j, k)
     b_ms, b_by = bound_ms(4.0 * 3 * n * n, 2.0 * n ** 3)
     results["minplus"] = {
         "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
@@ -228,6 +232,7 @@ def main() -> None:
     check(torch.equal(got, want), "admission kernel differs from plain")
     m, cc = d.shape
     w = p.shape[1]
+    # a compare per cell, and one per prefix column
     b_ms, b_by = bound_ms(4.0 * (2 * m * cc + m + m * w) + m * cc,
                           m * cc * (1.0 + w))
     results["admission"] = {
@@ -251,7 +256,8 @@ def main() -> None:
     torch.testing.assert_close(l_k, l_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(c_k, c_p, rtol=1e-5, atol=1e-9)
     err1 = max(float((l_k - l_p).abs().max()), float((c_k - c_p).abs().max()))
-    b_ms, b_by = bound_ms(4.0 * (P1 * S1 + 2 * P1 + 2 * S1), 4.0 * P1 * S1)
+    # two FMAs per element of B: one into loads, one into costs
+    b_ms, b_by = bound_ms(4.0 * (P1 * S1 + 2 * P1 + 2 * S1), 2.0 * P1 * S1)
     cong_names = ["congestion_band_kernel", "congestion_fold_kernel"]
     results["congestion"] = {
         "max_abs_err": err1, "bound_ms": b_ms, "bound_by": b_by,
@@ -292,10 +298,19 @@ def main() -> None:
                             r_pad[:P1].contiguous(), w_pad[:S1].contiguous())
     check(torch.equal(l_pad[:S1], l_un) and torch.equal(c_pad[:P1], c_un),
           "zero padding changed the congestion kernel's sums")
-    b_ms, b_by = bound_ms(4.0 * Bt * (Pb * Sb + 2 * Pb + 2 * Sb),
-                          4.0 * Bt * Pb * Sb)
+    # the bound counts the three real members' incidences; the stack the
+    # kernel reads also holds the empty filler member and the bucketed
+    # padding, whose share is reported beside it
+    real_cells = sum(ps.n_paths * ps.n_slots for ps in systems)
+    real_bytes = 4.0 * sum(ps.n_paths * ps.n_slots + 2 * ps.n_paths
+                           + 2 * ps.n_slots for ps in systems)
+    b_ms, b_by = bound_ms(real_bytes, 2.0 * real_cells)
+    padded_bytes = 4.0 * Bt * (Pb * Sb + 2 * Pb + 2 * Sb)
+    pad_ms, _ = bound_ms(padded_bytes, 2.0 * Bt * Pb * Sb)
     results["congestion_batch"] = {
         "max_abs_err": err3, "bound_ms": b_ms, "bound_by": b_by,
+        "padded_bound_ms": pad_ms,
+        "padding_share": 1.0 - real_bytes / padded_bytes,
         "shape": [Bt, Pb, Sb], "stack_bytes": 4 * Bt * Pb * Sb,
         **timings(lambda: congestion(b3, r3, w3), cong_names,
                   lambda: congestion_ref(b3, r3, w3),
@@ -330,44 +345,57 @@ def main() -> None:
     del dfull, adj, dist, want
     torch.cuda.empty_cache()
 
-    # ---- 4. the full-width probe ------------------------------------------ #
+    # ---- 4. the full-width probe, and one sequential solve ----------------- #
+    # Each path runs with every launch count set to 0 just before it and
+    # read just after it.
+    launches = {}
     clear_routing_cache()
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    systems = [
-        build_path_system(top, random_permutation_traffic(top, seed=s),
-                          k=8, max_slack=3, device=dev)
-        for s in range(3)
-    ]
+    probe = capacity.probe_full_capacity(top, n_matrices=3, k=8, iters=500,
+                                         method="auto", device=dev)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res = mw_concurrent_flow_batch(systems, iters=500, target_alpha=1.0,
-                                   backend="auto", device=dev)
-    verdict = all(x.alpha >= 1.0 - 1e-6 for x in res)
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t0
-    probe_s = build_s + solve_s
-    entry_verdict = capacity.supports_full_capacity(
-        top, n_matrices=3, k=8, iters=500, method="auto", device=dev)
-    seq_alpha = capacity.alpha_of(top, seed=0, k=8, slack=3, method="mw",
-                                  iters=500, device=dev)
-    torch.cuda.synchronize()
-    probe_counts = kernels.launch_counts()
-    check(entry_verdict == verdict, "supports_full_capacity disagrees")
+    probe_s = time.perf_counter() - t0
+    launches["probe"] = kernels.launch_counts()
+    systems, res = probe.mw_systems, probe.mw_results
+    check(len(res) == 3, f"{3 - len(res)} probe matrices left the MW solver")
     check(all(x.method == "mw-batch-dense" for x in res),
           f"probe did not take the dense kernel: {[x.method for x in res]}")
     check(all(np.isfinite(x.alpha) and 0 < x.alpha < 8 for x in res),
           "probe alphas are not finite")
     check(all(x.rates.shape == (ps.n_paths,) and np.all(np.isfinite(x.rates))
               for x, ps in zip(res, systems)), "probe rates malformed")
-    t0 = time.perf_counter()
-    res_g = mw_concurrent_flow_batch(systems, iters=500, target_alpha=1.0,
-                                     backend="gather", device=dev)
+    check(probe.verdict == all(x.alpha >= 1.0 - 1e-6 for x in res),
+          "probe verdict disagrees with its alphas")
+
+    clear_routing_cache()
+    kernels.reset_launch_counts()
     torch.cuda.synchronize()
-    gather_s = time.perf_counter() - t0
-    diff = max(abs(x.alpha - y.alpha) for x, y in zip(res, res_g))
+    t0 = time.perf_counter()
+    seq_alpha = capacity.alpha_of(top, seed=0, k=8, slack=3, method="mw",
+                                  iters=500, device=dev)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    launches["alpha_of"] = kernels.launch_counts()
+    if res[0].iters == 500:  # no target stop: the same 500 steps
+        check(seq_alpha == res[0].alpha,
+              "sequential dense solve differs from its batched member")
+
+    # the probe's solve alone, dense then gather, on the probe's own systems
+    solve_s = {}
+    alphas = {}
+    for be in ("dense", "gather"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alphas[be] = capacity.batch_alphas(systems, method="mw", iters=500,
+                                           mw_backend=be, target_alpha=1.0,
+                                           device=dev)
+        torch.cuda.synchronize()
+        solve_s[be] = time.perf_counter() - t0
+    check(alphas["dense"] == [x.alpha for x in res],
+          "the probe's dense solve is not reproducible")
+    diff = max(abs(x - y) for x, y in zip(alphas["dense"], alphas["gather"]))
     check(diff <= 1e-3, f"dense vs gather alpha differ by {diff}")
     for s, ps in enumerate(systems):
         cpu_ps = build_path_system(top, random_permutation_traffic(top, seed=s),
@@ -384,13 +412,13 @@ def main() -> None:
           "slots": [ps.n_slots for ps in systems],
           "commodities": [ps.n_commodities for ps in systems],
           "alpha": [x.alpha for x in res], "iters": [x.iters for x in res],
-          "verdict": verdict, "seconds": probe_s, "build_seconds": build_s,
-          "dense_solve_seconds": solve_s,
-          "gather_alpha": [x.alpha for x in res_g],
-          "gather_iters": [x.iters for x in res_g],
-          "gather_solve_seconds": gather_s, "max_alpha_diff": diff,
-          "sequential_dense_alpha": seq_alpha,
-          "launches": probe_counts})
+          "verdict": probe.verdict, "seconds": probe_s,
+          "dense_solve_seconds": solve_s["dense"],
+          "gather_solve_seconds": solve_s["gather"],
+          "gather_alpha": alphas["gather"], "max_alpha_diff": diff,
+          "launches": launches["probe"]})
+    emit({"phase": "alpha_of", "method": "mw", "alpha": seq_alpha,
+          "seconds": seq_s, "launches": launches["alpha_of"]})
 
     # ---- 5. the bisection -------------------------------------------------- #
     elapsed = time.perf_counter() - t_start
@@ -399,13 +427,14 @@ def main() -> None:
     lo, hi = eq_b["servers"] // 2, 2 * eq_b["servers"]
     clear_routing_cache()
     kernels.reset_launch_counts()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     best = capacity.max_servers_at_full_capacity(
         eq_b["switches"], eq_b["ports_per_switch"], lo=lo, hi=hi,
         seeds=(0,), method="mw", device=dev)
     torch.cuda.synchronize()
     bis_s = time.perf_counter() - t0
-    bis_counts = kernels.launch_counts()
+    launches["bisection"] = kernels.launch_counts()
     check(lo <= best <= hi, f"bisection result {best} outside [{lo}, {hi}]")
     # a small bisection on the card must equal the CPU run (exact LP verdicts
     # on path systems that are identical on both devices)
@@ -413,7 +442,6 @@ def main() -> None:
     small = dict(lo=eq6["servers"] // 2, hi=2 * eq6["servers"], seeds=(0,))
     small_gpu = capacity.max_servers_at_full_capacity(
         eq6["switches"], eq6["ports_per_switch"], device=dev, **small)
-    set_admission_backend("numpy")
     small_cpu = capacity.max_servers_at_full_capacity(
         eq6["switches"], eq6["ports_per_switch"], device="cpu", **small)
     check(small_gpu == small_cpu, f"k=6 bisection {small_gpu} != CPU {small_cpu}")
@@ -421,7 +449,7 @@ def main() -> None:
           "ports": eq_b["ports_per_switch"], "lo": lo, "hi": hi,
           "servers": best, "fattree_servers": eq_b["servers"],
           "ratio": best / eq_b["servers"], "seconds": bis_s,
-          "launches": bis_counts, "k6_servers_gpu": small_gpu,
+          "launches": launches["bisection"], "k6_servers_gpu": small_gpu,
           "k6_servers_cpu": small_cpu})
 
     # ---- 6. kernels -------------------------------------------------------- #
@@ -437,17 +465,25 @@ def main() -> None:
         "minplus": "src/repro_torch/kernels/csrc/minplus.cu",
         "admission": "src/repro_torch/kernels/csrc/admission.cu",
     }
+    # the path that must launch each kernel; the probe and the bisection
+    # solve batched only
+    expected = {
+        "probe": ("congestion_batch", "minplus", "admission"),
+        "alpha_of": ("congestion", "minplus", "admission"),
+        "bisection": ("congestion_batch", "minplus", "admission"),
+    }
+    for path, names in expected.items():
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"kernel {name} was not launched by the {path} path")
     rows = []
     for name in replaces:
-        launches = probe_counts[name] + bis_counts[name]
-        check(probe_counts[name] > 0,
-              f"kernel {name} was not launched by the probe")
-        if name != "congestion":  # the bisection solves batched only
-            check(bis_counts[name] > 0,
-                  f"kernel {name} was not launched by the bisection")
         r = results[name]
         rows.append({"name": name, "route": "cuda", "source": sources[name],
-                     "replaces": replaces[name], "launches": launches,
+                     "replaces": replaces[name],
+                     "launches": sum(c[name] for c in launches.values()),
+                     "launches_by_path": {p: c[name]
+                                          for p, c in launches.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -19,6 +19,8 @@ solve, and the server count equals the sequential search's.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -37,10 +39,12 @@ from .core.flow import LP_PATH_LIMIT
 
 __all__ = [
     "MW_MIN_PATHS",
+    "Probe",
     "alpha_of",
     "batch_alphas",
     "jellyfish_same_equipment",
     "max_servers_at_full_capacity",
+    "probe_full_capacity",
     "spread_servers",
     "supports_full_capacity",
 ]
@@ -131,6 +135,29 @@ def _probe_verdict(systems, tol, method):
     return True, mw_systems
 
 
+class Probe(NamedTuple):
+    """One probe's outcome: the verdict, the MW-sized path systems and
+    their batched solve's results (empty when the LP rejected first)."""
+
+    verdict: bool
+    mw_systems: list
+    mw_results: list
+
+
+def probe_full_capacity(top, n_matrices=3, k=8, tol=1e-6, method="auto",
+                        iters=500, mw_backend="auto",
+                        device: "str | torch.device" = "cuda") -> Probe:
+    """``supports_full_capacity`` with the solves it ran."""
+    lp_ok, mw_systems = _probe_verdict(
+        _probe_systems(top, n_matrices, k, device), tol, method
+    )
+    if not lp_ok or not mw_systems:
+        return Probe(lp_ok, mw_systems, [])
+    res = mw_concurrent_flow_batch(mw_systems, iters=iters, target_alpha=1.0,
+                                   backend=mw_backend, device=device)
+    return Probe(all(r.alpha >= 1.0 - tol for r in res), mw_systems, res)
+
+
 def supports_full_capacity(top, n_matrices=3, k=8, tol=1e-6,
                            method="auto", iters=500, mw_backend="auto",
                            device: "str | torch.device" = "cuda") -> bool:
@@ -138,17 +165,8 @@ def supports_full_capacity(top, n_matrices=3, k=8, tol=1e-6,
     alpha >= 1 - tol.  The MW solves stop as soon as they exhibit a
     feasible alpha-1 flow (``target_alpha=1.0``), and otherwise burn the
     full budget."""
-    lp_ok, mw_systems = _probe_verdict(
-        _probe_systems(top, n_matrices, k, device), tol, method
-    )
-    if not lp_ok:
-        return False
-    if mw_systems:
-        res = mw_concurrent_flow_batch(mw_systems, iters=iters,
-                                       target_alpha=1.0, backend=mw_backend,
-                                       device=device)
-        return all(r.alpha >= 1.0 - tol for r in res)
-    return True
+    return probe_full_capacity(top, n_matrices, k, tol, method, iters,
+                               mw_backend, device).verdict
 
 
 def max_servers_at_full_capacity(

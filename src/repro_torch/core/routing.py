@@ -10,9 +10,10 @@ path tables to the reference.  Two steps run on the build's ``device``:
   on the card); on the CPU, to the reference's blocked / dense BLAS BFS.
   Every backend returns the identical canonical int16 hop matrix.
 * the per-level admissibility prune (``_admission_mask``), when the
-  admission backend is ``kernel`` (``REPRO_TORCH_ADMISSION_BACKEND`` /
-  ``set_admission_backend``): the fused prune of ``kernels.admission``.
-  The default ``numpy`` keeps it on the host.  Both give the same mask.
+  admission backend is ``kernel``, or ``auto`` (the default) on a CUDA
+  build (``REPRO_TORCH_ADMISSION_BACKEND`` / ``set_admission_backend``):
+  the fused prune of ``kernels.admission``.
+  ``numpy`` keeps it on the host.  Both give the same mask.
 
 The paper routes on k=8 shortest paths per switch pair.  For unit-weight
 graphs the engine precomputes the hop-distance matrix once, then expands
@@ -160,12 +161,13 @@ def set_admission_backend(name: str) -> str:
     """Select the expansion-round admissibility-prune backend; returns the
     previous setting.
 
-    ``numpy`` (default) keeps the prune in the host enumerator's numpy
-    broadcast; ``kernel`` routes it through ``kernels.admission`` on the
-    build's device (the CUDA kernel on a GPU, its plain version on the CPU),
-    which folds the membership test into a per-cell loop instead of the
-    (rows, prefix, candidates) boolean temporary.  Path sets are identical
-    in every mode.
+    ``numpy`` keeps the prune in the host enumerator's numpy broadcast;
+    ``kernel`` routes it through ``kernels.admission`` on the build's device
+    (the CUDA kernel on a GPU, its plain version on the CPU), which folds
+    the membership test into a per-cell loop instead of the (rows, prefix,
+    candidates) boolean temporary; ``auto`` (default) takes ``kernel`` when
+    the build's device is CUDA and ``numpy`` otherwise, as the APSP ``auto``
+    takes the min-plus kernel.  Path sets are identical in every mode.
     """
     global _admission_backend
     if name not in ADMISSION_BACKENDS:
@@ -182,7 +184,7 @@ def _admission_mask(
     cand: np.ndarray,
     rem: np.ndarray,
     pref: np.ndarray | None,
-    device: torch.device,
+    device: "str | torch.device",
 ) -> np.ndarray:
     """(M, C) admissibility (+ simplicity when ``pref`` given) mask.
 
@@ -190,7 +192,9 @@ def _admission_mask(
     (M, W, C) boolean broadcast for the membership test, the kernel backend
     loops over the prefix per cell.  Exact comparisons -> identical masks.
     """
-    if _admission_backend == "kernel":
+    if _admission_backend == "kernel" or (
+        _admission_backend == "auto" and torch.device(device).type == "cuda"
+    ):
         from ..kernels.admission import admission_prune
 
         return admission_prune(

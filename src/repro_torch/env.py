@@ -32,9 +32,10 @@ APSP_BACKENDS = ("auto", "dense", "blocked", "minplus", "minplus_blocked")
 
 #: Admissibility-prune backends of the port's path enumerator.  ``kernel``
 #: routes the prune through ``repro_torch.kernels.admission`` on the build's
-#: device; ``numpy`` keeps it in the host enumerator.  Both give the same
-#: mask (exact comparisons only).
-ADMISSION_BACKENDS = ("numpy", "kernel")
+#: device; ``numpy`` keeps it in the host enumerator; ``auto`` (the default)
+#: takes ``kernel`` on a CUDA build and ``numpy`` on a CPU build.  All give
+#: the same mask (exact comparisons only).
+ADMISSION_BACKENDS = ("auto", "numpy", "kernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +121,7 @@ SPECS: dict[str, EnvSpec] = {
         EnvSpec(
             "REPRO_TORCH_ADMISSION_BACKEND",
             _parse_choice(ADMISSION_BACKENDS),
-            "numpy",
+            "auto",
             "Admissibility-prune backend for the port's path enumerator "
             "(see repro_torch.core.routing.set_admission_backend).",
         ),

@@ -58,6 +58,21 @@ def test_alpha_helpers_agree():
     assert capacity.spread_servers(10, 4).tolist() == [3, 3, 2, 2]
 
 
+def test_probe_reports_the_solves_behind_its_verdict():
+    top = capacity.jellyfish_same_equipment(20, 8, 60, seed=0)
+    kw = dict(n_matrices=2, k=4, method="mw", iters=150, device=CPU)
+    probe = capacity.probe_full_capacity(top, **kw)
+    assert probe.verdict == capacity.supports_full_capacity(top, **kw)
+    assert len(probe.mw_systems) == len(probe.mw_results) == 2
+    assert probe.verdict == all(r.alpha >= 1.0 - 1e-6
+                                for r in probe.mw_results)
+    want = capacity.batch_alphas(probe.mw_systems, method="mw", iters=150,
+                                 target_alpha=1.0, device=CPU)
+    assert [r.alpha for r in probe.mw_results] == want
+    lp = capacity.probe_full_capacity(top, n_matrices=2, k=4, device=CPU)
+    assert lp.mw_systems == lp.mw_results == []
+
+
 def _alpha(top, seed=0, k=8):
     comm = random_permutation_traffic(top, seed=seed)
     ps = build_path_system(top, comm, k=k, device=CPU)

@@ -27,7 +27,7 @@ from repro_torch.core import (
     random_permutation_traffic,
 )
 from repro_torch.core.metrics import apsp_hops_blocked
-from repro_torch.core.routing import clear_routing_cache, set_admission_backend
+from repro_torch.core.routing import clear_routing_cache
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.admission import admission, admission_ref
 from repro_torch.kernels.congestion import congestion, congestion_ref
@@ -136,14 +136,11 @@ def test_build_and_solve_on_card(dev):
     clear_routing_cache()
     cpu_ps = build_path_system(top, comm, k=8, max_slack=3, device="cpu",
                                cache=False)
-    prev = set_admission_backend("kernel")
-    try:
-        before = kernels.launch_counts()
-        gpu_ps = build_path_system(top, comm, k=8, max_slack=3, device=dev,
-                                   cache=False)
-        after = kernels.launch_counts()
-    finally:
-        set_admission_backend(prev)
+    # the default admission backend (auto) takes the kernel on the card
+    before = kernels.launch_counts()
+    gpu_ps = build_path_system(top, comm, k=8, max_slack=3, device=dev,
+                               cache=False)
+    after = kernels.launch_counts()
     assert after["admission"] > before["admission"]
     assert after["minplus"] > before["minplus"]
     for f in ("path_edges", "path_len", "path_owner", "demands"):

@@ -11,12 +11,16 @@ Tolerances, and why each holds:
   differs is the last bit of transcendentals (XLA:CPU evaluates ``exp``,
   ``pow`` and ``2 / sqrt`` with its own approximations, e.g. ``rsqrt``,
   and rounds some values differently from torch).
-* MW alpha over a full horizon (400 iterations): within 1e-2 relative, and
+* MW alpha over a full horizon (400 iterations): within 5e-3 relative, and
   never above the exact LP optimum.  The annealed softmax amplifies those
   last-bit differences over hundreds of iterations, as it amplifies the
   reassociation between the reference's own ``scatter`` and ``dense``
-  backends, so a tighter bound would test the rounding of ``exp``, not
-  the port.
+  backends.  Measured on these three systems (a CPU run): the gap is at
+  most 1.1e-6 up to 25 iterations, then grows unevenly to at most 3.98e-3
+  (``gather`` against ``scatter``, the 40-switch system); ``dense`` against
+  ``dense`` reached 3.08e-3 over torch CPU thread counts 1-16 (the BLAS
+  order depends on them); the reference's own ``scatter`` and ``dense``
+  differ by up to 2.6e-3.  The bound sits just above the largest reading.
 * Within the port, a batched solve equals the sequential one bit for bit
   under ``gather`` (CT-batch), ragged envelopes and adaptive stops included.
 """
@@ -135,7 +139,7 @@ def test_mw_full_horizon_within_drift_and_below_lp(idx):
         want = R.mw_concurrent_flow(rps, iters=400, backend=ref_be).alpha
         got = T.mw_concurrent_flow(pps, iters=400, backend=port_be,
                                    device=CPU).alpha
-        assert got == pytest.approx(want, rel=1e-2)
+        assert got == pytest.approx(want, rel=5e-3)
         assert 0.9 * lp < got <= lp * (1 + 1e-6)
 
 

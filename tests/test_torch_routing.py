@@ -102,7 +102,7 @@ def _same_path_system(pps, rps):
     assert pps.n_edges == rps.n_edges
 
 
-@pytest.mark.parametrize("admission", ["numpy", "kernel"])
+@pytest.mark.parametrize("admission", ["auto", "numpy", "kernel"])
 @pytest.mark.parametrize("kind,k,slack", [("jellyfish", 8, 3),
                                           ("jellyfish", 4, 4),
                                           ("fattree", 8, 2)])
