@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Runs the paper's Fig 1c capacity path at full width on the card and prints
-one JSON line per phase:
+Runs the paper's Fig 1c capacity path, the spectral lambda_2 path and the
+incremental-expansion path at full width on the card and prints one JSON
+line per phase:
 
 1. ``build``   compile the hand-written CUDA kernels from ``csrc/`` (one
                ``nvcc`` per source, started together).
@@ -12,7 +13,9 @@ one JSON line per phase:
                the card, on inputs at the shapes the main path gives it
                (min-plus and admission exact; congestion within rtol 1e-5;
                each member of a batched congestion call equal to the single
-               call bit for bit), and time kernel, plain version and, where
+               call bit for bit; matmul within rtol 1e-5 at the spectral
+               path's 8192 x 8192 x 8, at 1024^3 and in float64, with TF32
+               off), and time kernel, plain version and, where
                one exists, the one PyTorch library call computing the same
                function (device time per call from ``torch.profiler``, or
                from CUDA events where two profiler sessions record no
@@ -20,6 +23,12 @@ one JSON line per phase:
                per-call stream time from CUDA events beside it).
 3. ``apsp``    APSP of a seeded RRG(8192, 48 ports, degree 36) through
                ``apsp_minplus_blocked`` on the card, equal to the host BFS.
+   ``spectral``  lambda_2 of the same RRG's Laplacian by
+               ``ops.power_iteration_lambda2`` on the card (300 iterations,
+               a block of 8, one fixed start block): 301 matmul launches,
+               within rtol 1e-4 of the CPU run from the same start block,
+               and not below ``scipy.sparse.linalg.eigsh``'s lambda_2 by
+               more than rtol 1e-4 (its gap above is reported).
 4. ``probe``   the full-width probe: ``capacity.probe_full_capacity`` (the
                body of ``supports_full_capacity``, returning the solves
                behind its verdict) on the equipment of a k=24 fat-tree
@@ -28,16 +37,23 @@ one JSON line per phase:
                probe's solve alone with ``dense`` and with ``gather``.
                Path systems built on the card equal those built on the CPU.
    ``alpha_of``  one sequential ``alpha_of`` (the single-incidence kernel).
+   ``expansion``  a Jellyfish of 720 switches x 24 ports (6 servers each)
+               under a random server permutation, grown to 792 switches in
+               4 steps of 18 ``add_switch`` calls (``expand_to``), then 5 %
+               of its links failed: at each step ``update_path_system`` on
+               the card equals ``build_path_system(..., cache=False)`` on
+               the card exactly, a warm-started MW solve is set against a
+               cold one, and lambda_2 of the step's topology is computed.
 5. ``bisection``  a whole ``max_servers_at_full_capacity`` search with
                ``method="mw"`` at the k=24 equipment (k=16 when the probe
                shows it would not fit the time budget), plus a small
                bisection whose count must equal the CPU run's.
-6. ``kernels`` per kernel: launches on each path (the probe, ``alpha_of``
-               and the bisection, each run with the counts set to 0 just
-               before it and read just after; each kernel must be launched
-               by the paths that use it), largest difference from the plain
-               version, and the times of phase 2 beside the card's bound
-               for the work.
+6. ``kernels`` per kernel: launches on each path (``spectral``, the probe,
+               ``alpha_of``, ``expansion`` and the bisection, each run with
+               the counts set to 0 just before it and read just after; each
+               kernel must be launched by the paths that use it), largest
+               difference from the plain version, and the times of phase 2
+               beside the card's bound for the work.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -65,6 +81,13 @@ FP32_INSTR_PER_S = 67e12 / 2
 #: ports, 3456 servers in the fat-tree) hosting 1.25x the servers.
 K_FULL = 24
 PROBE_SERVERS = 4320
+#: Expansion path: 720 switches of 24 ports, 18 to the network (6 servers
+#: each, the probe's equipment), grown by 4 steps of 18 switches.
+EXP_SWITCHES, EXP_PORTS, EXP_NET = 720, 24, 18
+EXP_STEPS, EXP_STEP_SWITCHES = 4, 18
+EXP_FAIL_FRACTION = 0.05
+#: Spectral path: power iterations and block width.
+SPECTRAL_ITERS, SPECTRAL_BLOCK = 300, 8
 #: Seconds the whole script aims to stay within (half the run's limit).
 TIME_BUDGET_S = 600.0
 
@@ -106,15 +129,26 @@ def main() -> None:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import capacity, kernels
+    import scipy.sparse as sparse
+    from scipy.sparse.linalg import eigsh
+
+    from repro_torch import capacity, kernels, obs
     from repro_torch.analysis.contracts import check_path_system
     from repro_torch.core import (
         PathSystemBatch,
         build_path_system,
+        expand_to,
+        extend_server_permutation,
+        fail_links,
         fattree_equipment,
         jellyfish,
+        mw_concurrent_flow,
+        permutation_commodities,
         random_permutation_traffic,
+        random_server_permutation,
+        update_path_system,
     )
+    from repro_torch.core import routing
     from repro_torch.core.flow import _empty_path_system, dense_incidence
     from repro_torch.core.metrics import apsp_hops_blocked
     from repro_torch.core.routing import clear_routing_cache
@@ -122,6 +156,7 @@ def main() -> None:
     from repro_torch.kernels.admission import admission, admission_ref
     from repro_torch.kernels.congestion import congestion, congestion_ref
     from repro_torch.kernels.minplus import minplus, minplus_ref
+    from repro_torch.kernels.power import matmul, matmul_ref
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -332,15 +367,75 @@ def main() -> None:
     }
     del b1, b3, l_k, c_k, l_p, c_p, pe3
     torch.cuda.empty_cache()
+
+    # matmul: the spectral path's A @ Q, the RRG(8192, 48, 36) adjacency of
+    # phase 3 times the column-major Q that torch.linalg.qr returns for an
+    # 8192 x 8 block; float32 throughout (TF32 is off, set above, so the
+    # plain and library products are full float32 too)
+    rrg = jellyfish(8192, 48, 36, seed=0)
+    adj = rrg.adjacency()
+    a_rrg = torch.from_numpy(adj).to(dev)
+    q8, _ = torch.linalg.qr(torch.from_numpy(
+        rng.standard_normal((adj.shape[0], SPECTRAL_BLOCK)).astype(np.float32)
+    ).to(dev))
+    got = matmul(a_rrg, q8)
+    want = matmul_ref(a_rrg, q8)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err_mm = float((got - want).abs().max())
+    # one square float32 shape and one float64 shape, for correctness
+    sq = [torch.from_numpy(rng.random((1024, 1024), np.float32)).to(dev)
+          for _ in range(2)]
+    got_sq, want_sq = matmul(sq[0], sq[1]), matmul_ref(sq[0], sq[1])
+    torch.testing.assert_close(got_sq, want_sq, rtol=1e-5, atol=1e-5)
+    f64 = [torch.from_numpy(rng.standard_normal(s)).to(dev)
+           for s in ((1000, 700), (700, 130))]
+    got_64, want_64 = matmul(*f64), matmul_ref(*f64)
+    torch.testing.assert_close(got_64, want_64, rtol=1e-12, atol=1e-12)
+    nm, km = a_rrg.shape
+    # one FMA per (i, j, k); A read once, Q read once, C written once
+    b_ms, b_by = bound_ms(4.0 * (nm * km + 2 * km * SPECTRAL_BLOCK),
+                          1.0 * nm * km * SPECTRAL_BLOCK)
+    results["matmul"] = {
+        "max_abs_err": err_mm, "bound_ms": b_ms, "bound_by": b_by,
+        "shape": [nm, km, SPECTRAL_BLOCK],
+        "square_1024_max_abs_err": float((got_sq - want_sq).abs().max()),
+        "f64_max_abs_err": float((got_64 - want_64).abs().max()),
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+        **timings(lambda: matmul(a_rrg, q8), ["matmul_kernel"],
+                  lambda: matmul_ref(a_rrg, q8),
+                  lambda: torch.matmul(a_rrg, q8), 50),
+    }
+    sq_ms, _ = device_ms(lambda: matmul(sq[0], sq[1]), 10, ["matmul_kernel"])
+    results["matmul"]["square_1024_ms"] = sq_ms
+    # the expansion path's shape: the 792-switch adjacency @ an 8-wide block
+    a792 = torch.from_numpy(
+        jellyfish(EXP_SWITCHES + EXP_STEPS * EXP_STEP_SWITCHES, EXP_PORTS,
+                  EXP_NET, seed=0).adjacency()).to(dev)
+    q792 = q8[: a792.shape[0]].contiguous()
+    torch.testing.assert_close(matmul(a792, q792), matmul_ref(a792, q792),
+                               rtol=1e-5, atol=1e-5)
+    n792 = a792.shape[0]
+    b_ms792, b_by792 = bound_ms(
+        4.0 * (n792 * n792 + 2 * n792 * SPECTRAL_BLOCK),
+        1.0 * n792 * n792 * SPECTRAL_BLOCK)
+    results["matmul_792"] = {
+        "shape": [n792, n792, SPECTRAL_BLOCK], "bound_ms": b_ms792,
+        "bound_by": b_by792,
+        **timings(lambda: matmul(a792, q792), ["matmul_kernel"],
+                  lambda: matmul_ref(a792, q792),
+                  lambda: torch.matmul(a792, q792), 50),
+    }
+    del got, want, sq, got_sq, want_sq, f64, got_64, want_64, a792, q792
     emit({"phase": "kernel_checks", "results": results})
 
     # ---- 3. APSP of RRG(8192, 48, 36) on the card -------------------------- #
-    rrg = jellyfish(8192, 48, 36, seed=0)
-    adj = rrg.adjacency()
+    launches = {}
+    kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dist = ops.apsp_minplus_blocked(adj, device=dev)
     apsp_s = time.perf_counter() - t0
+    launches["apsp"] = kernels.launch_counts()
     t0 = time.perf_counter()
     want = apsp_hops_blocked(adj)
     bfs_s = time.perf_counter() - t0
@@ -349,21 +444,75 @@ def main() -> None:
     sq_ms, sq_timer = device_ms(lambda: minplus(dfull, dfull), 3,
                                 ["minplus_kernel"])
     sq_call_ms = sync_time(lambda: minplus(dfull, dfull), 3)
+    # the plain version once at this size: 8192 one-column strips
+    sq_plain_ms, sq_plain_timer = device_ms(lambda: minplus_ref(dfull, dfull),
+                                            1)
     nn = dfull.shape[0]
     sq_bound, sq_by = bound_ms(4.0 * 3 * nn * nn, 2.0 * nn ** 3)
     emit({"phase": "apsp", "n": nn, "seconds": apsp_s,
           "host_bfs_seconds": bfs_s, "diameter": int(dist.max()),
           "squaring_ms": sq_ms, "squaring_timer": sq_timer,
           "squaring_call_ms": sq_call_ms,
+          "squaring_plain_ms": sq_plain_ms,
+          "squaring_plain_timer": sq_plain_timer,
           "squaring_bound_ms": sq_bound,
-          "squaring_bound_by": sq_by, "equal_to_bfs": True})
-    del dfull, adj, dist, want
+          "squaring_bound_by": sq_by, "equal_to_bfs": True,
+          "launches": launches["apsp"]})
+    del dfull, dist, want
+    torch.cuda.empty_cache()
+
+    # ---- 3'. spectral: lambda_2 of the same RRG by power iteration --------- #
+    v0 = np.random.default_rng(1).standard_normal(
+        (adj.shape[0], SPECTRAL_BLOCK)).astype(np.float32)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lam_gpu = ops.power_iteration_lambda2(adj, iters=SPECTRAL_ITERS,
+                                          block=SPECTRAL_BLOCK, v0=v0,
+                                          device=dev)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    launches["spectral"] = kernels.launch_counts()
+    check(launches["spectral"]["matmul"] == SPECTRAL_ITERS + 1,
+          f"spectral path launched matmul {launches['spectral']['matmul']} "
+          f"times, expected {SPECTRAL_ITERS + 1}")
+    t0 = time.perf_counter()
+    lam_cpu = ops.power_iteration_lambda2(adj, iters=SPECTRAL_ITERS,
+                                          block=SPECTRAL_BLOCK, v0=v0,
+                                          device="cpu")
+    spec_cpu_s = time.perf_counter() - t0
+    check(abs(lam_gpu - lam_cpu) <= 1e-4 * abs(lam_cpu),
+          f"lambda_2 on the card {lam_gpu} != CPU {lam_cpu} (rtol 1e-4)")
+    e = rrg.edges
+    a_sp = sparse.coo_matrix(
+        (np.ones(2 * len(e)), (np.r_[e[:, 0], e[:, 1]], np.r_[e[:, 1], e[:, 0]])),
+        shape=adj.shape).tocsr()
+    lap = sparse.diags(np.asarray(a_sp.sum(axis=1)).ravel()) - a_sp
+    t0 = time.perf_counter()
+    lam_true = float(np.sort(eigsh(lap, k=2, which="SA", tol=1e-10,
+                                   return_eigenvectors=False))[1])
+    eigsh_s = time.perf_counter() - t0
+    check(lam_gpu >= lam_true * (1 - 1e-4),
+          f"power-iteration lambda_2 {lam_gpu} below eigsh's {lam_true}")
+    # the loop's other large step: QR of the 8192 x 8 block, per call
+    vq = torch.from_numpy(v0).to(dev)
+    qr_ms = sync_time(lambda: torch.linalg.qr(vq), 50)
+    emit({"phase": "spectral", "n": adj.shape[0], "iters": SPECTRAL_ITERS,
+          "block": SPECTRAL_BLOCK, "lambda2": lam_gpu,
+          "lambda2_cpu": lam_cpu, "lambda2_eigsh": lam_true,
+          "rel_gap_above_eigsh": (lam_gpu - lam_true) / lam_true,
+          "rel_diff_cpu": abs(lam_gpu - lam_cpu) / abs(lam_cpu),
+          "seconds": spec_s, "cpu_seconds": spec_cpu_s,
+          "eigsh_seconds": eigsh_s, "qr_call_ms": qr_ms,
+          "matmul_kernel_ms_total": results["matmul"]["ms"]
+          * launches["spectral"]["matmul"],
+          "launches": launches["spectral"]})
+    del adj, a_rrg, q8, vq, a_sp, lap
     torch.cuda.empty_cache()
 
     # ---- 4. the full-width probe, and one sequential solve ----------------- #
     # Each path runs with every launch count set to 0 just before it and
     # read just after it.
-    launches = {}
     clear_routing_cache()
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -435,6 +584,115 @@ def main() -> None:
     emit({"phase": "alpha_of", "method": "mw", "alpha": seq_alpha,
           "seconds": seq_s, "launches": launches["alpha_of"]})
 
+    # ---- 4'. incremental expansion and failures with delta routing -------- #
+    def same_system(a, b, what: str) -> None:
+        """A delta update equals the rebuild: path sets, slot tables, row
+        order and the unrouted set (the slot matrix up to its padding)."""
+        w = max(a.path_edges.shape[1], b.path_edges.shape[1])
+        pads = [np.pad(x.path_edges, ((0, 0), (0, w - x.path_edges.shape[1])),
+                       constant_values=2 * x.n_edges) for x in (a, b)]
+        check(a.n_edges == b.n_edges and a.n_commodities == b.n_commodities,
+              f"{what}: delta and rebuild differ in size")
+        check(np.array_equal(pads[0], pads[1]),
+              f"{what}: delta path slots differ from the rebuild")
+        for f in ("path_len", "path_owner", "unrouted", "demands", "src",
+                  "dst"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"{what}: delta {f} differs from the rebuild")
+
+    certified = []
+    plain_exact = routing._dist_is_exact
+
+    def recording_exact(d, nbr):
+        ok = plain_exact(d, nbr)
+        certified.append(bool(ok))
+        return ok
+
+    exp_iters, warm_iters = 400, 160
+    routing._dist_is_exact = recording_exact
+    try:
+        clear_routing_cache()
+        rebuilds0 = obs.counter("route/update/rebuilds").to_value()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t_exp = time.perf_counter()
+        cur = jellyfish(EXP_SWITCHES, EXP_PORTS, EXP_NET, seed=0)
+        perm = random_server_permutation(cur.n_servers, seed=0)
+        comm = permutation_commodities(cur, perm)
+        ps = build_path_system(cur, comm, k=8, device=dev)
+        prev = mw_concurrent_flow(ps, iters=exp_iters, device=dev)
+        erng = np.random.default_rng(1)
+        steps = []
+        for step in range(EXP_STEPS + 1):
+            if step < EXP_STEPS:
+                new = expand_to(cur, cur.n_switches + EXP_STEP_SWITCHES,
+                                EXP_PORTS, EXP_NET, seed=erng)
+                perm = extend_server_permutation(perm, new.n_servers,
+                                                 seed=erng)
+                comm = permutation_commodities(new, perm)
+                what = f"expansion step {step + 1}"
+            else:
+                new = fail_links(cur, EXP_FAIL_FRACTION, seed=erng)
+                what = f"{EXP_FAIL_FRACTION:.0%} link failures"
+            n_cert = len(certified)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ps_new = update_path_system(ps, cur, new, comm, device=dev)
+            delta_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            full = build_path_system(new, comm, k=8, cache=False, device=dev)
+            rebuild_s = time.perf_counter() - t0
+            same_system(ps_new, full, what)
+            check_path_system(ps_new, new, name=what)
+            t0 = time.perf_counter()
+            warm = mw_concurrent_flow(ps_new, iters=warm_iters, warm=prev,
+                                      device=dev)
+            warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cold = mw_concurrent_flow(ps_new, iters=exp_iters, device=dev)
+            cold_s = time.perf_counter() - t0
+            loads = ps_new.loads(warm.rates)
+            check(bool(np.all(loads <= ps_new.capacities * (1 + 1e-4))),
+                  f"{what}: the warm-started flow is infeasible")
+            check(np.isfinite(warm.alpha) and np.isfinite(cold.alpha)
+                  and warm.alpha >= 0.9 * cold.alpha,
+                  f"{what}: warm alpha {warm.alpha} vs cold {cold.alpha}")
+            t0 = time.perf_counter()
+            lam = ops.power_iteration_lambda2(new.adjacency(),
+                                              iters=SPECTRAL_ITERS,
+                                              block=SPECTRAL_BLOCK, seed=step,
+                                              device=dev)
+            lam_s = time.perf_counter() - t0
+            steps.append({
+                "what": what, "switches": new.n_switches,
+                "links": new.n_edges,
+                "added": len(new.meta["edges_added"]),
+                "removed": len(new.meta["edges_removed"]),
+                "commodities": ps_new.n_commodities,
+                "paths": ps_new.n_paths, "slots": ps_new.n_slots,
+                "reused_rows": int((ps_new.row_map >= 0).sum()),
+                "certified": certified[n_cert:],
+                "delta_seconds": delta_s, "rebuild_seconds": rebuild_s,
+                "warm_alpha": warm.alpha, "warm_iters": warm.iters,
+                "warm_seconds": warm_s, "cold_alpha": cold.alpha,
+                "cold_iters": cold.iters, "cold_seconds": cold_s,
+                "method": cold.method, "lambda2": lam,
+                "lambda2_seconds": lam_s})
+            ps, cur, prev = ps_new, new, cold
+        torch.cuda.synchronize()
+        exp_s = time.perf_counter() - t_exp
+        launches["expansion"] = kernels.launch_counts()
+        rebuilds = obs.counter("route/update/rebuilds").to_value() - rebuilds0
+    finally:
+        routing._dist_is_exact = plain_exact
+    check(rebuilds == 0, f"{rebuilds} delta updates fell back to a rebuild")
+    check(len(certified) == len(steps),
+          "a delta update skipped the APSP repair and its certificate")
+    emit({"phase": "expansion", "start_switches": EXP_SWITCHES,
+          "ports": EXP_PORTS, "net_degree": EXP_NET, "k": 8,
+          "final_switches": cur.n_switches, "seconds": exp_s,
+          "steps": steps, "launches": launches["expansion"]})
+
     # ---- 5. the bisection -------------------------------------------------- #
     elapsed = time.perf_counter() - t_start
     k_bis = K_FULL if elapsed + 16 * probe_s < TIME_BUDGET_S else 16
@@ -473,18 +731,23 @@ def main() -> None:
         "congestion_batch": "src/repro/kernels/congestion.py:99",
         "minplus": "src/repro/kernels/minplus.py:61",
         "admission": "src/repro/kernels/admission.py:69",
+        "matmul": "src/repro/kernels/power.py:50",
     }
     sources = {
         "congestion": "src/repro_torch/kernels/csrc/congestion.cu",
         "congestion_batch": "src/repro_torch/kernels/csrc/congestion.cu",
         "minplus": "src/repro_torch/kernels/csrc/minplus.cu",
         "admission": "src/repro_torch/kernels/csrc/admission.cu",
+        "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     }
     # the path that must launch each kernel; the probe and the bisection
-    # solve batched only
+    # solve batched only, the expansion path single instances
     expected = {
+        "apsp": ("minplus",),
+        "spectral": ("matmul",),
         "probe": ("congestion_batch", "minplus", "admission"),
         "alpha_of": ("congestion", "minplus", "admission"),
+        "expansion": ("congestion", "minplus", "admission", "matmul"),
         "bisection": ("congestion_batch", "minplus", "admission"),
     }
     for path, names in expected.items():

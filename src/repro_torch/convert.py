@@ -10,6 +10,7 @@ solvers can be fed the identical state without the port importing
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -35,7 +36,12 @@ def _build(cls, fields: dict):
 def topology_from_numpy(fields: dict) -> Topology:
     """A port ``Topology`` from the fields of a reference one (``n_switches``,
     ``edges``, ``ports``, ``net_degree``, optionally ``name`` and ``meta``);
-    arrays are copied."""
+    arrays are copied, and ``meta`` (which holds the delta records of
+    ``core.expansion`` / ``core.failures``) is copied down to its lists, so
+    the two topologies share no state."""
+    fields = dict(fields)
+    if "meta" in fields:
+        fields["meta"] = copy.deepcopy(fields["meta"])
     return _build(Topology, fields)
 
 

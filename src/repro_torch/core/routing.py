@@ -31,9 +31,14 @@ of a topology with ``E`` edges gives two directed capacity slots, ``e``
 (``u -> v``) and ``e + E`` (``v -> u``); ``n_slots = 2E`` doubles as the
 padding sentinel in ``path_edges``.
 
+Delta routing (``update_path_system``, with ``_repair_dist``,
+``_dist_is_exact`` and ``_bfs_rows``) re-routes after an expansion or a
+failure and gives exactly what a rebuild would; its APSP and its
+re-enumeration run on the call's ``device`` like a build's.
+
 Not ported yet: ``build_path_system_batch`` with ``_BlockDist`` and
-``core/buildpipe.py`` (whose output equals sequential builds), delta routing
-(``update_path_system``), ``ecmp_path_system`` and the historical DFS.
+``core/buildpipe.py`` (whose output equals sequential builds),
+``ecmp_path_system`` and the historical DFS.
 """
 
 from __future__ import annotations
@@ -58,13 +63,14 @@ from .metrics import (
     hops_to_int16,
     sparse_adjacency,
 )
-from .topology import Topology
+from .topology import Topology, edge_delta, edge_fingerprint
 from .traffic import Commodities
 
 __all__ = [
     "PathSystem",
     "k_shortest_paths",
     "build_path_system",
+    "update_path_system",
     "clear_routing_cache",
     "set_apsp_backend",
     "set_admission_backend",
@@ -977,3 +983,487 @@ def build_path_system(
     return ps
 
 
+# --------------------------------------------------------------------------- #
+# delta updates (paper §4.2 expansion / §4.3 failure workloads)
+# --------------------------------------------------------------------------- #
+
+
+def _bfs_rows(adj, rows: np.ndarray) -> np.ndarray:
+    """Hop distances from each source in ``rows`` (batched BLAS frontier BFS).
+
+    The rectangular sibling of ``metrics.apsp_hops``: (len(rows), N) instead
+    of (N, N), so repairing a handful of APSP rows after a topology delta
+    costs |rows| / N of a full recompute.  ``adj`` may be dense or CSR (the
+    frontier product is a dense ndarray either way).
+    """
+    m, n = len(rows), adj.shape[0]
+    if hasattr(adj, "tocsr"):
+        a = adj
+    else:
+        a = (adj != 0).astype(np.float32)
+    dist = np.full((m, n), np.inf, dtype=np.float32)
+    dist[np.arange(m), rows] = 0.0
+    reach = np.zeros((m, n), dtype=np.float32)
+    reach[np.arange(m), rows] = 1.0
+    for step in range(1, n + 1):
+        newly = (np.asarray(reach @ a) > 0) & ~np.isfinite(dist)
+        if not newly.any():
+            break
+        dist[newly] = step
+        reach[dist < np.inf] = 1.0
+    return dist
+
+
+def _dist_is_exact(d: np.ndarray, nbr: np.ndarray) -> bool:
+    """Check ``d`` is the exact APSP matrix of the graph behind ``nbr``.
+
+    The Bellman system ``d[s,s] = 0``, ``d[s,t] = 1 + min_{w in N(t)} d[s,w]``
+    has the true hop-distance matrix as its unique solution (downward
+    violations propagate to a smaller violator; upward ones break the
+    recurrence along a shortest path), so one O(N^2 * d_max) gather-min pass
+    certifies a candidate built from stale state.  This turns the APSP delta
+    into *construct optimistically, verify, recompute only on failure* —
+    removals rarely shift distances on a low-diameter random graph, so the
+    fallback is the exception.
+
+    Accepts the canonical int16 hop matrix (sentinel ``INT16_INF``, verified
+    in int32 so the sentinel + 1 gather-min cannot wrap) as well as float32
+    with +inf — whichever form the blocked/dense APSP backends produced.
+    """
+    n = d.shape[0]
+    if not (d.diagonal() == 0).all():
+        return False
+    is_i16 = d.dtype == np.int16
+    if is_i16:
+        pad_val, inf32 = INT16_INF, np.int32(INT16_INF)
+        dpad = np.concatenate([d, np.full((n, 1), pad_val, dtype=np.int16)], axis=1)
+    else:
+        dpad = np.concatenate([d, np.full((n, 1), np.inf, dtype=np.float32)], axis=1)
+    # chunk the gather to bound the (rows, chunk, d_max) temporary
+    step = max(1, (1 << 22) // max(n * nbr.shape[1], 1))
+    for lo in range(0, n, step):
+        cols = nbr[lo: lo + step]  # (c, d_max) neighbor lists of chunk nodes
+        if is_i16:
+            best = dpad[:, cols].min(axis=2).astype(np.int32) + 1  # (n, c)
+            want = d[:, lo: lo + step].astype(np.int32)
+            # "unreachable" satisfies the recurrence when every neighbor is
+            # unreachable too: best = sentinel + 1, want = sentinel
+            eq = (best == want) | ((want == inf32) & (best > inf32))
+        else:
+            best = dpad[:, cols].min(axis=2) + 1.0
+            want = d[:, lo: lo + step]
+            eq = best == want
+        ar = np.arange(lo, min(lo + step, n))
+        eq[ar, ar - lo] = True  # diagonal handled above
+        if not eq.all():
+            return False
+    return True
+
+
+def _repair_dist(
+    dist_old: np.ndarray,
+    top_new: Topology,
+    kept_old: np.ndarray,
+    kept_new: np.ndarray,
+    rows: np.ndarray,
+    added: np.ndarray,
+    adj=None,
+) -> np.ndarray:
+    """Candidate APSP for ``top_new`` from ``dist_old`` plus a bounded repair.
+
+    1. Surviving rows/columns of the old matrix are copied over.
+    2. ``rows`` (new switches plus endpoints of removed edges — the entries
+       whose stale values are certainly wrong) are recomputed exactly by
+       batched BFS on the new adjacency.
+    3. Added edges are folded in Floyd-Warshall-style: seed their unit
+       entries, then pivot once through each added endpoint.  Any new
+       shortest path decomposes into old-graph segments joined at added
+       endpoints, so one pass over those pivots (in any order) folds them
+       in — the classical FW induction on the condensed graph.
+
+    The result is exact unless a removal changed some distance between
+    surviving rows; callers certify with ``_dist_is_exact`` and fall back to
+    a full ``_apsp`` when the check fails, so the construction here only has
+    to be right in the common case, never in all cases.
+
+    ``dist_old`` may be canonical int16 or float32; the repair workspace is a
+    transient float32 matrix (the FW pivots need +inf arithmetic) and the
+    result is returned in the canonical int16 form.
+    """
+    n = top_new.n_switches
+    d = np.full((n, n), np.inf, dtype=np.float32)
+    d[np.ix_(kept_new, kept_new)] = hops_to_f32(dist_old[np.ix_(kept_old, kept_old)])
+    np.fill_diagonal(d, 0.0)
+    if adj is None:
+        adj = top_new.adjacency()
+    if len(rows):
+        sub = _bfs_rows(adj, rows)
+        d[rows, :] = sub
+        d[:, rows] = sub.T
+    if len(added):
+        au, av = added[:, 0], added[:, 1]
+        d[au, av] = np.minimum(d[au, av], 1.0)
+        d[av, au] = d[au, av]
+        for w in np.unique(added):
+            np.minimum(d, d[:, w, None] + d[w, None, :], out=d)
+    return hops_to_int16(d)
+
+
+def _resolve_node_map(
+    top_old: Topology, top_new: Topology, node_map: np.ndarray | None
+) -> np.ndarray | None:
+    """old-id -> new-id map relating the two topologies, or None if unknown.
+
+    Priority: explicit argument; a producer-recorded ``meta["node_remap"]``
+    whose ``meta["delta_parent"]`` fingerprint proves it relates exactly these
+    two topologies; identity when ids are append-stable (n_old <= n_new, the
+    case for every producer that does not renumber).
+    """
+    if node_map is not None:
+        return np.asarray(node_map, dtype=np.int64)
+    meta = top_new.meta or {}
+    if (
+        meta.get("node_remap") is not None
+        and meta.get("delta_parent") == edge_fingerprint(top_old)
+    ):
+        return np.asarray(meta["node_remap"], dtype=np.int64)
+    if top_old.n_switches <= top_new.n_switches:
+        return np.arange(top_old.n_switches, dtype=np.int64)
+    return None
+
+
+def update_path_system(
+    ps: PathSystem,
+    top_old: Topology,
+    top_new: Topology,
+    comm: Commodities,
+    k: int | None = None,
+    max_slack: int | None = None,
+    node_map: np.ndarray | None = None,
+    dist_old: np.ndarray | None = None,
+    cache: bool = True,
+    rebuild_fraction: float = 0.25,
+    keep_node_paths: bool = False,
+    device: "str | torch.device" = "cuda",
+) -> PathSystem:
+    """Incrementally re-route after a topology delta (expansion / failure).
+
+    Produces the path system ``build_path_system(top_new, comm, ...)`` would,
+    but treats the edge-set delta between ``top_old`` and ``top_new`` as the
+    common case (paper §4.2/§4.3: expansion steps and failures are small
+    perturbations of a random graph):
+
+    * the APSP matrix is repaired in place — batched BFS for the rows touched
+      by removals plus new switches, Floyd-Warshall pivots over added-edge
+      endpoints — instead of recomputed;
+    * k-shortest paths are re-enumerated only for commodities whose cached
+      paths cross a removed edge, whose endpoint distance changed, whose
+      endpoints are new switches, or for which an added edge admits a path
+      short enough to enter the k-shortest set;
+    * every other commodity's path rows are spliced from ``ps`` with a pure
+      slot-id remap — no ``_paths_to_slots`` re-run, no re-enumeration.
+
+    Because the enumerator breaks length ties canonically, the spliced system
+    is *identical* to a from-scratch rebuild (same path sets, same per-path
+    order), so LP/MW alphas match to solver tolerance.  ``row_map`` on the
+    result maps each path row to its row in ``ps`` (-1 for fresh rows), which
+    ``mw_concurrent_flow(..., warm=...)`` uses to warm-start from the
+    previous flow vector.
+
+    Falls back to a full ``build_path_system`` when the delta is large
+    (> ``rebuild_fraction`` of edges), the topologies cannot be related
+    (unknown renumbering), or ``ps`` lacks pedigree (src/dst or a different
+    k/max_slack).  Node ids must be stable between the two topologies unless
+    a ``node_map`` (old -> new, -1 = dropped) is supplied or recorded by the
+    producer in ``top_new.meta["node_remap"]`` (see ``core.expansion``).
+
+    ``device`` is where every APSP (``_apsp``), the re-enumeration's
+    admission prune and the rebuild run, as in ``build_path_system``; the
+    repair and its certificate are host numpy.  The rebuild branch is the
+    reference's semantics for a delta it cannot splice, not a device
+    fallback: it runs on the same ``device``.
+    """
+    dev = resolve(device)
+    kk = ps.k if k is None else k
+    ms = ps.max_slack if max_slack is None else max_slack
+
+    def rebuild() -> PathSystem:
+        obs.counter("route/update/rebuilds").inc()
+        return build_path_system(
+            top_new, comm, k=kk, max_slack=ms, cache=cache,
+            keep_node_paths=keep_node_paths, device=dev,
+        )
+
+    if ps.src is None or ps.dst is None or ps.unrouted is None:
+        return rebuild()
+    if kk != ps.k or ms != ps.max_slack:
+        return rebuild()
+    nm = _resolve_node_map(top_old, top_new, node_map)
+    if nm is None:
+        return rebuild()
+
+    E_old, E_new = top_old.n_edges, top_new.n_edges
+    n_new = top_new.n_switches
+    added, removed_mask, eid_map = edge_delta(top_old, top_new, nm)
+    n_changed = len(added) + int(removed_mask.sum())
+    if n_changed > rebuild_fraction * max(E_new, 1):
+        return rebuild()
+
+    # ---- APSP: reuse / repair ------------------------------------------- #
+    if dist_old is None:
+        old_entry = _topo_cache.get(_topo_key(top_old)) if cache else None
+        dist_old = old_entry.get("dist") if old_entry else None
+    if dist_old is None:
+        # No cached predecessor APSP: recompute it (still far cheaper than a
+        # full rebuild, which would also redo walk counts and enumeration).
+        dist_old = _apsp(top_old.adjacency(), diameter_hint=_diameter_hint(top_old),
+                         device=dev)
+    else:
+        dist_old = np.asarray(dist_old)  # canonical int16 or caller float
+
+    entry_new = _topo_entry(top_new, cache=cache)
+    nbr_new = _cached_nbr(top_new, entry_new)
+    if "dist" in entry_new:
+        dist_new = entry_new["dist"]
+    elif n_new < 384:
+        # below a few hundred switches the dense BLAS APSP is cheaper than
+        # candidate construction + certification — just recompute
+        dist_new = _apsp(
+            _cached_adj(top_new, entry_new), diameter_hint=_diameter_hint(top_new),
+            device=dev,
+        )
+        entry_new["dist"] = dist_new
+    else:
+        kept_old = np.flatnonzero(nm >= 0)
+        kept_new = nm[kept_old]
+        # rows that are certainly stale: new switches, plus endpoints of
+        # removed edges (their direct entry changed for sure); everything
+        # else is assumed unchanged and certified below
+        new_nodes = np.setdiff1d(np.arange(n_new, dtype=np.int64), kept_new)
+        removed_ends = nm[np.unique(top_old.edges[removed_mask])]
+        rows = np.union1d(removed_ends[removed_ends >= 0], new_nodes)
+        cand = _repair_dist(
+            dist_old, top_new, kept_old, kept_new, rows, added,
+            adj=_slack_adj(top_new, entry_new),
+        )
+        if _dist_is_exact(cand, nbr_new):
+            dist_new = cand
+        else:  # a removal shifted distances between surviving rows
+            dist_new = _apsp(
+                _cached_adj(top_new, entry_new),
+                diameter_hint=_diameter_hint(top_new), device=dev,
+            )
+        entry_new["dist"] = dist_new
+
+    # ---- per-commodity reuse decision (vectorized) ----------------------- #
+    src_n = np.asarray(comm.src, dtype=np.int64)
+    dst_n = np.asarray(comm.dst, dtype=np.int64)
+    K = len(src_n)
+
+    # join new commodities against old ones on the (mapped) ordered pair key
+    s_m, t_m = nm[ps.src], nm[ps.dst]
+    alive_idx = np.flatnonzero((s_m >= 0) & (t_m >= 0))
+    key_old = s_m[alive_idx] * n_new + t_m[alive_idx]
+    order_o = np.argsort(key_old, kind="stable")  # dup pairs: first one wins
+    sorted_keys = key_old[order_o]
+    key_new = src_n * n_new + dst_n
+    pos = np.searchsorted(sorted_keys, key_new)
+    pos_ok = pos < len(sorted_keys)
+    matched = pos_ok.copy()
+    if len(sorted_keys):
+        matched[pos_ok] = sorted_keys[pos[pos_ok]] == key_new[pos_ok]
+    else:
+        matched[:] = False
+    old_of = np.full(K, -1, dtype=np.int64)
+    old_of[matched] = alive_idx[order_o[pos[matched]]]
+
+    n_kept_old = int((~ps.unrouted).sum())
+    old_kept_of = np.cumsum(~ps.unrouted) - 1  # valid where routed
+    owner_sorted = np.argsort(ps.path_owner, kind="stable")
+    owner_bounds = np.searchsorted(
+        ps.path_owner[owner_sorted], np.arange(n_kept_old + 1)
+    )
+
+    # rows whose slots touch a removed edge; per-commodity stats via reduceat
+    # over owner-grouped rows (every kept commodity owns >= 1 row)
+    slots = ps.path_edges
+    valid = slots < 2 * E_old
+    eid = np.where(valid, slots % max(E_old, 1), 0)
+    row_broken = (removed_mask[eid] & valid).any(axis=1) if E_old else (
+        np.zeros(len(slots), dtype=bool)
+    )
+    cnt = np.diff(owner_bounds)
+    if n_kept_old:
+        starts = owner_bounds[:-1]
+        maxlen = np.maximum.reduceat(
+            ps.path_len[owner_sorted].astype(np.int64), starts
+        )
+        broken_kept = np.maximum.reduceat(
+            row_broken[owner_sorted].astype(np.uint8), starts
+        ).astype(bool)
+    else:
+        maxlen = np.zeros(0, dtype=np.int64)
+        broken_kept = np.zeros(0, dtype=bool)
+
+    # Added-edge perturbation test, per new commodity.  An added edge can
+    # only enter a pair's k-shortest set with a path no longer than the
+    # pair's kept budget: strictly shorter always displaces, and a
+    # tie-length candidate can reshuffle the canonical tie selection — so
+    # any admissible added-edge path at or under the budget forces a
+    # re-enumeration.
+    d_pair_new = hops_to_f32(dist_new[src_n, dst_n])
+    if len(added):
+        au, av = added[:, 0], added[:, 1]
+        # np.ix_ gathers keep the temporaries at (K, |added|) instead of the
+        # (K, N) row gather the chained indexing used to materialize
+        via_added = np.minimum(
+            hops_to_f32(dist_new[np.ix_(src_n, au)])
+            + hops_to_f32(dist_new[np.ix_(dst_n, av)]),
+            hops_to_f32(dist_new[np.ix_(src_n, av)])
+            + hops_to_f32(dist_new[np.ix_(dst_n, au)]),
+        ).min(axis=1) + 1.0  # shortest path length through any added edge
+    else:
+        via_added = np.full(K, np.inf, dtype=np.float32)
+
+    reuse = np.zeros(K, dtype=bool)
+    mi = old_of[matched]  # old commodity index per matched new commodity
+    m_js = np.flatnonzero(matched)
+    unr_old = ps.unrouted[mi]
+    # previously-unrouted pairs stay reusable iff still disconnected
+    still_cut = ~np.isfinite(d_pair_new[m_js])
+    reuse[m_js[unr_old]] = still_cut[unr_old]
+    # routed pairs: intact rows, unchanged distance, no added-edge shortcut
+    r_js = m_js[~unr_old]
+    r_mi = mi[~unr_old]
+    ci = old_kept_of[r_mi]
+    ok = ~broken_kept[ci]
+    ok &= hops_to_f32(dist_old[ps.src[r_mi], ps.dst[r_mi]]) == d_pair_new[r_js]
+    budget = np.where(
+        cnt[ci] >= kk, maxlen[ci].astype(np.float64), d_pair_new[r_js] + ms
+    )
+    ok &= via_added[r_js] > budget
+    reuse[r_js] = ok
+
+    # ---- re-enumerate the rest ------------------------------------------ #
+    enum_js = np.flatnonzero(~reuse)
+    pairs = [(int(src_n[j]), int(dst_n[j])) for j in enum_js]
+    with obs.span("build/enum_delta", pairs=len(pairs)):
+        if cache:
+            enum_paths = k_shortest_paths(
+                top_new, pairs, k=kk, max_slack=ms, cache=True,
+                use_counts="subset", device=dev,
+            )
+        else:
+            enum_paths = k_shortest_paths(
+                top_new, pairs, k=kk, max_slack=ms, dist=dist_new,
+                cache=False, use_counts="subset", device=dev,
+            )
+    pe_e, len_e, owner_e, kept_e = _paths_to_slots(top_new, entry_new, enum_paths)
+
+    # ---- splice (vectorized) --------------------------------------------- #
+    # old directed slot -> new directed slot (surviving edges keep identity
+    # up to renumbering; the sentinel maps to the new sentinel)
+    slot_map = np.full(2 * E_old + 1, 2 * E_new, dtype=np.int32)
+    surv = np.flatnonzero(eid_map >= 0)
+    slot_map[surv] = eid_map[surv].astype(np.int32)
+    slot_map[surv + E_old] = (eid_map[surv] + E_new).astype(np.int32)
+
+    # per new commodity: 0 = unrouted, 1 = spliced from ps, 2 = enumerated
+    stat = np.zeros(K, dtype=np.int8)
+    cnt_j = np.zeros(K, dtype=np.int64)
+    ru_js = np.flatnonzero(reuse & ~ps.unrouted[np.maximum(old_of, 0)] & (old_of >= 0))
+    ru_c = old_kept_of[old_of[ru_js]]
+    stat[ru_js] = 1
+    cnt_j[ru_js] = cnt[ru_c]
+    has_paths = np.fromiter(
+        (len(p) > 0 for p in enum_paths), dtype=bool, count=len(enum_paths)
+    )
+    en_js = enum_js[has_paths]
+    stat[en_js] = 2
+    cnt_j[en_js] = np.diff(
+        np.searchsorted(owner_e, np.arange(int(kept_e) + 1))
+    )
+    unrouted_new = stat == 0
+    # delta telemetry: how much of the update was splice vs re-enumeration
+    obs.counter("route/update/deltas").inc()
+    obs.counter("route/update/spliced").inc(int((stat == 1).sum()))
+    obs.counter("route/update/enumerated").inc(len(enum_js))
+    obs.counter("route/update/unrouted").inc(int(unrouted_new.sum()))
+    obs.instant(
+        "route/update",
+        commodities=K,
+        spliced=int((stat == 1).sum()),
+        enumerated=len(enum_js),
+        unrouted=int(unrouted_new.sum()),
+    )
+
+    kept_js = np.flatnonzero(stat > 0)
+    counts = cnt_j[kept_js]
+    P_new = int(counts.sum())
+    n_seq = len(kept_js)
+    owner_final = np.repeat(np.arange(n_seq, dtype=np.int32), counts)
+    flags = np.repeat(stat[kept_js], counts)
+    old_pos = np.flatnonzero(flags == 1)
+    enum_pos = np.flatnonzero(flags == 2)
+
+    # gather old rows group-by-group in commodity order (vectorized ranges)
+    ru_in_kept = stat[kept_js] == 1
+    c_seq = old_kept_of[old_of[kept_js[ru_in_kept]]]
+    starts, lens = owner_bounds[c_seq], cnt[c_seq]
+    total = int(lens.sum())
+    if total:
+        offs = np.repeat(starts, lens) + (
+            np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        )
+        old_rows = owner_sorted[offs]
+    else:
+        old_rows = np.zeros(0, dtype=np.int64)
+    enum_rows = np.arange(len(pe_e), dtype=np.int64)  # pe_e is already in order
+
+    w_old = ps.path_edges.shape[1] if len(old_pos) else 0
+    w_new = pe_e.shape[1] if len(enum_pos) else 0
+    lmax = max(w_old, w_new, 1)
+    pe_final = np.full((P_new, lmax), 2 * E_new, dtype=np.int32)
+    len_final = np.zeros(P_new, dtype=np.int32)
+    row_map = np.full(P_new, -1, dtype=np.int64)
+    if len(old_pos):
+        pe_final[old_pos[:, None], np.arange(w_old)[None, :]] = slot_map[
+            ps.path_edges[old_rows]
+        ]
+        len_final[old_pos] = ps.path_len[old_rows]
+        row_map[old_pos] = old_rows
+    if len(enum_pos):
+        pe_final[enum_pos[:, None], np.arange(w_new)[None, :]] = pe_e[enum_rows]
+        len_final[enum_pos] = len_e[enum_rows]
+
+    node_paths_new: list[list[list[int]]] | None = None
+    if keep_node_paths and ps.node_paths is not None:
+        node_paths_new = []
+        cursor = {int(j): p for j, p in zip(enum_js, enum_paths)}
+        for j in range(K):
+            if stat[j] == 1:
+                node_paths_new.append(
+                    [[int(nm[x]) for x in p] for p in ps.node_paths[old_of[j]]]
+                )
+            else:
+                node_paths_new.append(cursor.get(j, []))
+
+    ps_new = PathSystem(
+        n_edges=E_new,
+        path_edges=pe_final,
+        path_len=len_final,
+        path_owner=owner_final,
+        demands=comm.demand[~unrouted_new].astype(np.float32),
+        capacities=np.ones(2 * E_new, dtype=np.float32),
+        n_commodities=n_seq,
+        node_paths=node_paths_new,
+        unrouted=unrouted_new,
+        src=src_n.copy(),
+        dst=dst_n.copy(),
+        k=kk,
+        max_slack=ms,
+        row_map=row_map,
+    )
+    if checks_enabled():
+        check_path_system(ps_new, top_new, name="update_path_system")
+    return ps_new

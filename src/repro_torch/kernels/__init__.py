@@ -6,6 +6,7 @@ wrapper                    CUDA source (csrc/)             replaces (repro/...)
 ``congestion.congestion``  ``congestion.cu``               ``kernels/congestion.py``
 ``minplus.minplus``        ``minplus.cu``                  ``kernels/minplus.py``
 ``admission.admission``    ``admission.cu``                ``kernels/admission.py``
+``power.matmul``           ``matmul.cu``                   ``kernels/power.py``
 =========================  ==============================  =====================
 
 A wrapper launches its kernel on CUDA tensors and uses its plain torch
@@ -16,10 +17,10 @@ import.  Each wrapper module counts its kernel launches (``launch_counts``).
 
 from __future__ import annotations
 
-from . import admission, congestion, minplus, ops
+from . import admission, congestion, minplus, ops, power
 
-__all__ = ["admission", "congestion", "minplus", "ops", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["admission", "congestion", "minplus", "ops", "power",
+           "launch_counts", "reset_launch_counts"]
 
 #: counter name -> (wrapper module, attribute holding its launch count)
 _COUNTERS = {
@@ -27,6 +28,7 @@ _COUNTERS = {
     "congestion_batch": (congestion, "batch_launches"),
     "minplus": (minplus, "launches"),
     "admission": (admission, "launches"),
+    "matmul": (power, "launches"),
 }
 
 

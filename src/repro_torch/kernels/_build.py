@@ -34,6 +34,7 @@ SOURCES = {
     "congestion": "congestion.cu",
     "minplus": "minplus.cu",
     "admission": "admission.cu",
+    "matmul": "matmul.cu",
 }
 
 NVCC_FLAGS = (

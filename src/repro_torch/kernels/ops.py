@@ -22,9 +22,9 @@ ordered gathers over the padded path table, is answered here by
 
 ``apsp_minplus`` is APSP by dense min-plus squaring of an f32 matrix on the
 device; ``apsp_minplus_blocked`` keeps the canonical int16 hop matrix on the
-device and squares it one row band at a time.  Replaces
-``repro/kernels/ops.py`` (ops.py:78-310) apart from ``matmul`` and
-``power_iteration_lambda2``, which are not ported yet.
+device and squares it one row band at a time.  ``power_iteration_lambda2``
+is lambda_2 of the Laplacian by block power iteration, its ``A @ Q`` step
+through the matmul kernel.  Replaces ``repro/kernels/ops.py`` (ops.py:78-340).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import torch
 from ..device import is_cuda, resolve
 from .congestion import congestion as _congestion
 from .minplus import minplus as _minplus
+from .power import matmul as _matmul
 
 __all__ = [
     "DENSE_INCIDENCE_BUDGET_BYTES",
@@ -42,7 +43,9 @@ __all__ = [
     "apsp_minplus_blocked",
     "congestion",
     "congestion_loads",
+    "matmul",
     "minplus",
+    "power_iteration_lambda2",
     "preferred_congestion_backend",
 ]
 
@@ -91,6 +94,11 @@ def preferred_congestion_backend(
 def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``C[i, j] = min_k A[i, k] + B[k, j]`` (kernel on CUDA tensors)."""
     return _minplus(a, b)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` (kernel on CUDA tensors)."""
+    return _matmul(a, b)
 
 
 def congestion(incidence, rates, prices):
@@ -210,3 +218,57 @@ def apsp_minplus_blocked(
             return nxt.cpu().numpy()
         cur = nxt
     return cur.cpu().numpy()
+
+
+def power_iteration_lambda2(
+    adj,
+    iters: int = 300,
+    block: int = 8,
+    seed: int = 0,
+    v0=None,
+    device: "str | torch.device" = "cuda",
+) -> float:
+    """lambda_2 of the Laplacian via block power iteration on B = cI - L.
+
+    The reference's loop step for step: deflate the block against the
+    all-ones top eigenvector, re-orthonormalize with ``torch.linalg.qr``,
+    apply ``B q = c q - D q + A q`` with ``A @ q`` through the matmul kernel
+    (one launch per iteration plus one for the final Rayleigh quotients),
+    and return ``c`` minus the largest Rayleigh quotient, clipped at 0.  As
+    a Rayleigh estimate it can only sit at or above the true lambda_2.
+
+    The start block is ``torch.randn`` from a ``torch.Generator`` seeded by
+    ``seed``.  Torch cannot reproduce the reference's
+    ``jax.random.normal(PRNGKey(seed))`` stream, so ``v0`` (an
+    ``(n, block)`` array) lets a caller hand both packages the same start
+    block; it overrides ``seed``.
+    """
+    dev = resolve(device)
+    a = torch.as_tensor(adj, dtype=torch.float32).to(dev)
+    n = a.shape[0]
+    deg = a.sum(dim=1)
+    c = 2.0 * deg.max() + 1.0
+    ones = torch.ones((n, 1), dtype=torch.float32, device=dev) / float(np.sqrt(n))
+    if v0 is None:
+        gen = torch.Generator().manual_seed(int(seed))
+        v = torch.randn((n, block), generator=gen, dtype=torch.float32)
+    else:
+        v = torch.tensor(np.asarray(v0, dtype=np.float32))
+        if tuple(v.shape) != (n, block):
+            raise ValueError(
+                f"v0 must have shape {(n, block)}; got {tuple(v.shape)}"
+            )
+    v = v.to(dev)
+
+    def apply_b(v):
+        v = v - ones @ (ones.T @ v)
+        q, _ = torch.linalg.qr(v)
+        # B @ q = c q - D q + A q ; the A @ q product is the kernel call
+        return q, c * q - deg[:, None] * q + _matmul(a, q)
+
+    for _ in range(iters):
+        _, v = apply_b(v)
+    q, w = apply_b(v)
+    lam_b = torch.diagonal(q.T @ w)
+    lam2 = c - lam_b.max()
+    return float(torch.clamp(lam2, min=0.0))

@@ -8,10 +8,12 @@ that has no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: min-plus and admission are exact (small-integer sums, minimums
-and comparisons in float32); congestion is held to rtol 1e-5 against the
-plain product because the two sum in different orders; batch members of
-one congestion call equal the single call bit for bit (the kernel's sums
-run in an order fixed by position).
+and comparisons in float32); congestion and matmul are held to rtol 1e-5
+against the plain product because the two sum in different orders; batch
+members of one congestion call equal the single call bit for bit (the
+kernel's sums run in an order fixed by position).  lambda_2 on the card
+agrees with the CPU run from the same start block within rtol 1e-4, and a
+delta update on the card equals a rebuild exactly.
 """
 
 import numpy as np
@@ -21,10 +23,16 @@ import torch
 from repro_torch import capacity, kernels
 from repro_torch.core import (
     build_path_system,
+    expand_to,
+    extend_server_permutation,
+    fail_links,
     jellyfish,
     mw_concurrent_flow,
     mw_concurrent_flow_batch,
+    permutation_commodities,
     random_permutation_traffic,
+    random_server_permutation,
+    update_path_system,
 )
 from repro_torch.core.metrics import apsp_hops_blocked
 from repro_torch.core.routing import clear_routing_cache
@@ -32,6 +40,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.admission import admission, admission_ref
 from repro_torch.kernels.congestion import congestion, congestion_ref
 from repro_torch.kernels.minplus import minplus, minplus_ref
+from repro_torch.kernels.power import matmul, matmul_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -165,3 +174,76 @@ def test_capacity_probe_on_card(dev):
                                            device=dev) == \
         capacity.supports_full_capacity(top, method="mw", iters=300,
                                         mw_backend="gather", device=dev)
+
+
+def _within_forward_bound(c, a, b):
+    """|C - AB| <= gamma_K |A| |B| elementwise, AB in float64, gamma_K =
+    K u / (1 - K u) with u the unit roundoff of C's type: the forward error
+    bound of a K-term dot product in any summation order.  Kernel and plain
+    version sum in different orders, so at K = 4096 with standard-normal
+    operands they differ by up to ~3e-4 while both meet this bound.  A
+    float64 C is held to 2 gamma_K: its float64 reference rounds too."""
+    k = a.shape[1]
+    u = 2.0 ** -24 if c.dtype == torch.float32 else 2.0 ** -53
+    gamma = k * u / (1 - k * u) * (1 if c.dtype == torch.float32 else 2)
+    exact = a.double() @ b.double()
+    bound = gamma * (a.double().abs() @ b.double().abs())
+    assert bool(((c.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (1, 1, 1, torch.float32), (65, 33, 130, torch.float32),
+    (1024, 1024, 1024, torch.float32), (4096, 4096, 8, torch.float32),
+    (300, 517, 70, torch.float64), (7, 300, 5, torch.float64)])
+def test_matmul_kernel_matches_plain(dev, m, k, n, dtype):
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.standard_normal((m, k))).to(dev, dtype)
+    b = torch.from_numpy(rng.standard_normal((k, n))).to(dev, dtype)
+    before = kernels.power.launches
+    got = matmul(a, b)
+    torch.cuda.synchronize()
+    assert kernels.power.launches == before + 1
+    assert got.dtype == dtype
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _within_forward_bound(got, a, b)
+    _within_forward_bound(matmul_ref(a, b), a, b)
+    # transposed operands and the column-major Q of QR, read in place
+    q, _ = torch.linalg.qr(b) if k >= n else (b, None)
+    at = a.T.contiguous().T
+    assert not at.is_contiguous() or m == 1 or k == 1
+    _within_forward_bound(matmul(at, q), a, q)
+
+
+def test_power_iteration_on_card_matches_cpu(dev):
+    top = jellyfish(300, 12, 8, seed=3)
+    v0 = np.random.default_rng(0).standard_normal((300, 8)).astype(np.float32)
+    before = kernels.power.launches
+    got = ops.power_iteration_lambda2(top.adjacency(), iters=100, v0=v0,
+                                      device=dev)
+    assert kernels.power.launches == before + 101
+    want = ops.power_iteration_lambda2(top.adjacency(), iters=100, v0=v0,
+                                       device="cpu")
+    assert got == pytest.approx(want, rel=1e-4)
+
+
+def test_delta_update_on_card_equals_rebuild(dev):
+    top = jellyfish(400, 12, 8, seed=0)
+    perm = random_server_permutation(top.n_servers, seed=0)
+    comm = permutation_commodities(top, perm)
+    clear_routing_cache()
+    ps = build_path_system(top, comm, k=8, device=dev)
+    grown = expand_to(top, 404, 12, 8, seed=1)
+    perm = extend_server_permutation(perm, grown.n_servers, seed=2)
+    comm = permutation_commodities(grown, perm)
+    failed = fail_links(grown, 0.03, seed=3)
+    for old, new in ((top, grown), (grown, failed)):
+        before = kernels.launch_counts()
+        ps = update_path_system(ps, old, new, comm, device=dev)
+        assert kernels.launch_counts()["admission"] > before["admission"]
+        full = build_path_system(new, comm, k=8, cache=False, device=dev)
+        w = max(ps.path_edges.shape[1], full.path_edges.shape[1])
+        pad = [np.pad(x.path_edges, ((0, 0), (0, w - x.path_edges.shape[1])),
+                      constant_values=2 * x.n_edges) for x in (ps, full)]
+        np.testing.assert_array_equal(pad[0], pad[1])
+        for f in ("path_len", "path_owner", "unrouted", "demands"):
+            np.testing.assert_array_equal(getattr(ps, f), getattr(full, f))
