@@ -11,11 +11,17 @@ line per phase:
                ``nvcc`` per source, started together).
 2. ``kernel_checks``  hold every kernel against its plain torch version on
                the card, on inputs at the shapes the main path gives it
-               (min-plus and admission exact; congestion within rtol 1e-5;
-               each member of a batched congestion call equal to the single
-               call bit for bit; matmul within rtol 1e-5 at the spectral
-               path's 8192 x 8192 x 8, at 1024^3 and in float64, with TF32
-               off), and time kernel, plain version and, where
+               (min-plus and admission exact; congestion, single and
+               batched with and without the members' extents, within rtol
+               1e-5; each member of a batched call equal to the single call
+               on its unpadded incidence bit for bit, and the empty filler
+               member's outputs all zero; matmul within rtol 1e-5 at the
+               spectral path's 8192 x 8192 x 8, on the narrow kernel at
+               N = 1, 8, 16 and K = 8191, at 1024^3 on the tile kernel, and
+               float64 within 1e-12 on both, with TF32 off; the batched
+               congestion is timed as the solver calls it, over the
+               members' extents, with the whole stack's time beside it),
+               and time kernel, plain version and, where
                one exists, the one PyTorch library call computing the same
                function (device time per call from ``torch.profiler``, or
                from CUDA events where two profiler sessions record no
@@ -316,7 +322,8 @@ def main() -> None:
     }
 
     # congestion, batched: the probe's stacked incidence, as the batched
-    # solver pads it (3 matrices + 1 empty filler, bucketed envelope)
+    # solver pads it (3 matrices + 1 empty filler, bucketed envelope, each
+    # member's padding sentinel hitting its column n_slots)
     batch = PathSystemBatch.from_systems(systems + [_empty_path_system()])
     Bt, Pb, Sb = batch.n_batch, batch.p_max, batch.s_max
     b3 = torch.zeros((Bt, Pb, Sb), dtype=torch.float32, device=dev)
@@ -325,11 +332,13 @@ def main() -> None:
         b3[i] = dense_incidence(pe3[i], Sb)
     r3 = torch.from_numpy(rng.random((Bt, Pb), np.float32)).to(dev)
     w3 = torch.from_numpy(rng.random((Bt, Sb), np.float32) / Sb).to(dev)
+    # the whole stack, no extents: each member equals the single call on it
     l_k, c_k = congestion(b3, r3, w3)
     l_p, c_p = congestion_ref(b3, r3, w3)
     torch.testing.assert_close(l_k, l_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(c_k, c_p, rtol=1e-5, atol=1e-9)
-    err3 = max(float((l_k - l_p).abs().max()), float((c_k - c_p).abs().max()))
+    err_full = max(float((l_k - l_p).abs().max()),
+                   float((c_k - c_p).abs().max()))
     for i in range(Bt):
         l1, c1 = congestion(b3[i], r3[i].contiguous(), w3[i].contiguous())
         check(torch.equal(l1, l_k[i]) and torch.equal(c1, c_k[i]),
@@ -346,24 +355,50 @@ def main() -> None:
                             r_pad[:P1].contiguous(), w_pad[:S1].contiguous())
     check(torch.equal(l_pad[:S1], l_un) and torch.equal(c_pad[:P1], c_un),
           "zero padding changed the congestion kernel's sums")
-    # the bound counts the three real members' incidences; the stack the
-    # kernel reads also holds the empty filler member and the bucketed
-    # padding, whose share is reported beside it
+    # the solver's call: each member over its real extent (P_b, S_b), the
+    # filler member (0, 0); the kernel reads none of the padding
+    ext = (batch.n_paths, [ps.n_slots for ps in batch.systems])
+    l_k, c_k = congestion(b3, r3, w3, extents=ext)
+    l_p, c_p = congestion_ref(b3, r3, w3, extents=ext)
+    torch.testing.assert_close(l_k, l_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(c_k, c_p, rtol=1e-5, atol=1e-9)
+    err3 = max(float((l_k - l_p).abs().max()), float((c_k - c_p).abs().max()),
+               err_full)
+    for i, (pi, si) in enumerate(zip(*ext)):
+        check(not l_k[i, si:].any() and not c_k[i, pi:].any(),
+              f"congestion member {i}: non-zero output beyond its extents")
+        if pi == 0:
+            check(not l_k[i].any() and not c_k[i].any(),
+                  f"congestion filler member {i}: outputs are not all zero")
+            continue
+        l1, c1 = congestion(b3[i, :pi, :si].contiguous(),
+                            r3[i, :pi].contiguous(), w3[i, :si].contiguous())
+        check(torch.equal(l1, l_k[i, :si]) and torch.equal(c1, c_k[i, :pi]),
+              f"congestion member {i} over its extents differs from the "
+              "single call on its unpadded incidence")
+    # the bound counts the three real members' incidences, which is what
+    # the call with extents reads; the call without reads the whole stack
     real_cells = sum(ps.n_paths * ps.n_slots for ps in systems)
     real_bytes = 4.0 * sum(ps.n_paths * ps.n_slots + 2 * ps.n_paths
                            + 2 * ps.n_slots for ps in systems)
     b_ms, b_by = bound_ms(real_bytes, 2.0 * real_cells)
     padded_bytes = 4.0 * Bt * (Pb * Sb + 2 * Pb + 2 * Sb)
     pad_ms, _ = bound_ms(padded_bytes, 2.0 * Bt * Pb * Sb)
+    full_ms, full_timer = device_ms(lambda: congestion(b3, r3, w3), 10,
+                                    cong_names)
     results["congestion_batch"] = {
         "max_abs_err": err3, "bound_ms": b_ms, "bound_by": b_by,
-        "padded_bound_ms": pad_ms,
+        "extents": [list(map(int, ext[0])), list(map(int, ext[1]))],
+        "shape": [Bt, Pb, Sb], "stack_bytes_read": real_bytes,
+        "full_stack_bytes": padded_bytes,
         "padding_share": 1.0 - real_bytes / padded_bytes,
-        "shape": [Bt, Pb, Sb], "stack_bytes": 4 * Bt * Pb * Sb,
-        **timings(lambda: congestion(b3, r3, w3), cong_names,
-                  lambda: congestion_ref(b3, r3, w3),
-                  lambda: [(torch.mv(b3[i].T, r3[i]), torch.mv(b3[i], w3[i]))
-                           for i in range(Bt)], 10),
+        "full_stack_ms": full_ms, "full_stack_timer": full_timer,
+        "full_stack_bound_ms": pad_ms,
+        **timings(lambda: congestion(b3, r3, w3, extents=ext), cong_names,
+                  lambda: congestion_ref(b3, r3, w3, extents=ext),
+                  lambda: [(torch.mv(b3[i, :pi, :si].T, r3[i, :pi]),
+                            torch.mv(b3[i, :pi, :si], w3[i, :si]))
+                           for i, (pi, si) in enumerate(zip(*ext))], 10),
     }
     del b1, b3, l_k, c_k, l_p, c_p, pe3
     torch.cuda.empty_cache()
@@ -371,18 +406,35 @@ def main() -> None:
     # matmul: the spectral path's A @ Q, the RRG(8192, 48, 36) adjacency of
     # phase 3 times the column-major Q that torch.linalg.qr returns for an
     # 8192 x 8 block; float32 throughout (TF32 is off, set above, so the
-    # plain and library products are full float32 too)
+    # plain and library products are full float32 too).  N <= 16 runs the
+    # narrow row-band kernel, wider products the 64 x 64 tile kernel.
+    narrow_names, tile_names = ["matmul_narrow_kernel"], ["matmul_kernel"]
     rrg = jellyfish(8192, 48, 36, seed=0)
     adj = rrg.adjacency()
     a_rrg = torch.from_numpy(adj).to(dev)
-    q8, _ = torch.linalg.qr(torch.from_numpy(
-        rng.standard_normal((adj.shape[0], SPECTRAL_BLOCK)).astype(np.float32)
-    ).to(dev))
+
+    def q_block(rows, n, dtype=torch.float32):
+        q, _ = torch.linalg.qr(torch.from_numpy(
+            rng.standard_normal((rows, n))).to(dev, dtype))
+        return q
+
+    q8 = q_block(adj.shape[0], SPECTRAL_BLOCK)
     got = matmul(a_rrg, q8)
     want = matmul_ref(a_rrg, q8)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     err_mm = float((got - want).abs().max())
-    # one square float32 shape and one float64 shape, for correctness
+    # the narrow kernel at N = 1, 8, 16 (16-byte copies), and at an odd K
+    # (8191: single-element copies of A and of Q)
+    narrow_err = {}
+    for n in (1, 8, 16):
+        q = q_block(adj.shape[0], n)
+        for label, a_, q_ in ((f"n{n}", a_rrg, q),
+                              (f"n{n}_k8191", a_rrg[:, :8191],
+                               q_block(8191, n))):
+            g, w_ = matmul(a_, q_), matmul_ref(a_, q_)
+            torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+            narrow_err[label] = float((g - w_).abs().max())
+    # one square float32 shape (tile kernel) and float64 on both kernels
     sq = [torch.from_numpy(rng.random((1024, 1024), np.float32)).to(dev)
           for _ in range(2)]
     got_sq, want_sq = matmul(sq[0], sq[1]), matmul_ref(sq[0], sq[1])
@@ -391,6 +443,10 @@ def main() -> None:
            for s in ((1000, 700), (700, 130))]
     got_64, want_64 = matmul(*f64), matmul_ref(*f64)
     torch.testing.assert_close(got_64, want_64, rtol=1e-12, atol=1e-12)
+    a792_64 = torch.from_numpy(rng.standard_normal((792, 792))).to(dev)
+    q792_64 = q_block(792, SPECTRAL_BLOCK, torch.float64)
+    got_n64, want_n64 = matmul(a792_64, q792_64), matmul_ref(a792_64, q792_64)
+    torch.testing.assert_close(got_n64, want_n64, rtol=1e-12, atol=1e-12)
     nm, km = a_rrg.shape
     # one FMA per (i, j, k); A read once, Q read once, C written once
     b_ms, b_by = bound_ms(4.0 * (nm * km + 2 * km * SPECTRAL_BLOCK),
@@ -398,20 +454,23 @@ def main() -> None:
     results["matmul"] = {
         "max_abs_err": err_mm, "bound_ms": b_ms, "bound_by": b_by,
         "shape": [nm, km, SPECTRAL_BLOCK],
+        "narrow_max_abs_err": narrow_err,
         "square_1024_max_abs_err": float((got_sq - want_sq).abs().max()),
         "f64_max_abs_err": float((got_64 - want_64).abs().max()),
+        "f64_narrow_max_abs_err": float((got_n64 - want_n64).abs().max()),
         "tf32": torch.backends.cuda.matmul.allow_tf32,
-        **timings(lambda: matmul(a_rrg, q8), ["matmul_kernel"],
+        **timings(lambda: matmul(a_rrg, q8), narrow_names,
                   lambda: matmul_ref(a_rrg, q8),
                   lambda: torch.matmul(a_rrg, q8), 50),
     }
-    sq_ms, _ = device_ms(lambda: matmul(sq[0], sq[1]), 10, ["matmul_kernel"])
+    sq_ms, _ = device_ms(lambda: matmul(sq[0], sq[1]), 10, tile_names)
     results["matmul"]["square_1024_ms"] = sq_ms
-    # the expansion path's shape: the 792-switch adjacency @ an 8-wide block
+    # the expansion path's shape: the 792-switch adjacency @ the
+    # column-major Q of an 8-wide block
     a792 = torch.from_numpy(
         jellyfish(EXP_SWITCHES + EXP_STEPS * EXP_STEP_SWITCHES, EXP_PORTS,
                   EXP_NET, seed=0).adjacency()).to(dev)
-    q792 = q8[: a792.shape[0]].contiguous()
+    q792 = q_block(a792.shape[0], SPECTRAL_BLOCK)
     torch.testing.assert_close(matmul(a792, q792), matmul_ref(a792, q792),
                                rtol=1e-5, atol=1e-5)
     n792 = a792.shape[0]
@@ -421,11 +480,12 @@ def main() -> None:
     results["matmul_792"] = {
         "shape": [n792, n792, SPECTRAL_BLOCK], "bound_ms": b_ms792,
         "bound_by": b_by792,
-        **timings(lambda: matmul(a792, q792), ["matmul_kernel"],
+        **timings(lambda: matmul(a792, q792), narrow_names,
                   lambda: matmul_ref(a792, q792),
                   lambda: torch.matmul(a792, q792), 50),
     }
     del got, want, sq, got_sq, want_sq, f64, got_64, want_64, a792, q792
+    del a792_64, q792_64, got_n64, want_n64
     emit({"phase": "kernel_checks", "results": results})
 
     # ---- 3. APSP of RRG(8192, 48, 36) on the card -------------------------- #

@@ -265,6 +265,7 @@ def make_congestion_fn_batch(
     n_batch: int,
     backend: str,
     slot_gather: np.ndarray | None = None,
+    extents: tuple | None = None,
 ):
     """Batched fused (loads, costs) closure over a stack of path systems.
 
@@ -280,7 +281,9 @@ def make_congestion_fn_batch(
       ones.
     * ``dense`` — the stacked rank-3 (Bt, P, S) incidence, materialized
       once, through ``ops.congestion``: one fused kernel launch per
-      iteration for the whole stack on CUDA.  Shared tables use two plain
+      iteration for the whole stack on CUDA, over each member's real
+      ``extents=(n_paths, n_slots)`` when given (exact: see
+      ``kernels.congestion.congestion``).  Shared tables use two plain
       matrix products over one B.
     """
     dev = path_edges.device
@@ -320,7 +323,7 @@ def make_congestion_fn_batch(
         _fill_incidence(b3[i], path_edges[i], n_slots)
 
     def fused(rates, prices):
-        return ops.congestion(b3, rates, prices)
+        return ops.congestion(b3, rates, prices, extents)
 
     return fused
 
@@ -879,6 +882,8 @@ def mw_concurrent_flow_batch(
     fused = make_congestion_fn_batch(
         pe, batch.s_max, B, backend,
         batch.slot_gather if backend == "gather" else None,
+        extents=None if batch.shared else (
+            batch.n_paths, [ps.n_slots for ps in batch.systems]),
     )
     seg_norm = _make_seg_norm(owner, _columns(batch.owner_gather, dev),
                               dummy=not batch.shared)

@@ -2,12 +2,14 @@
 
 Each source in ``csrc/`` exposes a plain C interface (``extern "C"`` launch
 functions that return the ``cudaError_t`` of ``cudaGetLastError()`` right
-after the launch) and is compiled on its own into a shared library under
+after the launch) and is compiled on its own, with the shared ``*.cuh``
+headers beside it, into a shared library under
 ``build/torch_kernels/`` at the repository root, for ``sm_90a``.  Nothing
 here runs at import: the first kernel call (or an explicit
 :func:`build_all`) compiles every source at once, one ``nvcc`` process per
 file started together, and loads the libraries.  A library whose name
-carries the hash of its source and flags is reused when it already exists.
+carries the hash of its source, the headers and the flags is reused when
+it already exists.
 
 A missing ``nvcc`` or a failed compile raises; there is no fallback.
 """
@@ -69,6 +71,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    # the shared headers are part of every source's input
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

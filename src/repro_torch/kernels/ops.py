@@ -101,10 +101,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _matmul(a, b)
 
 
-def congestion(incidence, rates, prices):
+def congestion(incidence, rates, prices, extents=None):
     """Fused ``(B^T r, B w)``; a rank-3 ``incidence`` runs one product per
-    stacked batch member (kernel on CUDA tensors)."""
-    return _congestion(incidence, rates, prices)
+    stacked batch member, over each member's ``extents=(rows, cols)`` when
+    given (kernel on CUDA tensors; see ``kernels.congestion.congestion``)."""
+    return _congestion(incidence, rates, prices, extents)
 
 
 def congestion_loads(incidence, rates) -> torch.Tensor:

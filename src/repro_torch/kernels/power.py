@@ -11,6 +11,12 @@ in different orders, so they agree to rounding, not bit for bit.
 
 Replaces ``repro/kernels/power.py`` (``check_matmul_dtype``,
 ``matmul_kernel``, ``matmul_pallas``) and ``repro/kernels/ref.py::matmul_ref``.
+
+A product at most ``NARROW_MAX_N`` = 16 columns wide (every product of the
+spectral path) runs the narrow row-band kernel; a wider one the 64 x 64 tile
+kernel.  :func:`narrow_plan` chooses the narrow kernel's band height and
+whether it copies A's rows and B's columns 16 bytes at a time (contiguous,
+aligned operands) or one element at a time (any other strides).
 """
 
 from __future__ import annotations
@@ -21,14 +27,21 @@ import torch
 
 from . import _build
 
-__all__ = ["check_matmul_dtype", "matmul", "matmul_ref", "launches"]
+__all__ = ["NARROW_MAX_N", "check_matmul_dtype", "matmul", "matmul_ref",
+           "narrow_plan", "launches"]
+
+#: Widest product (columns of B) the narrow kernel takes.
+NARROW_MAX_N = 16
 
 #: Launches of the CUDA kernel since import (or the last reset).
 launches = 0
 
 _SIG = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 4 \
     + [ctypes.c_void_p]
-_SIGS = {"matmul_f32_launch": _SIG, "matmul_f64_launch": _SIG}
+_SIG_NARROW = _SIG[:-1] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SIGS = {"matmul_f32_launch": _SIG, "matmul_f64_launch": _SIG,
+         "matmul_narrow_f32_launch": _SIG_NARROW,
+         "matmul_narrow_f64_launch": _SIG_NARROW}
 
 
 def check_matmul_dtype(a, b) -> tuple:
@@ -58,6 +71,29 @@ def check_matmul_dtype(a, b) -> tuple:
         )
     dtype = torch.promote_types(a.dtype, b.dtype)
     return a.to(dtype), b.to(dtype)
+
+
+def narrow_plan(a, b, n_sm: int) -> dict:
+    """The narrow kernel's launch for ``A @ B`` on a card of ``n_sm`` SMs.
+
+    ``band_rows``: 16 rows a block while that still gives at least two
+    blocks per SM, else 8 (8192 rows: 512 blocks; 792 rows: 99).
+    ``vec_a`` / ``vec_b``: 16-byte copies of A's rows / B's columns, where
+    they are contiguous, K is a multiple of the 16 bytes' elements and the
+    pointer and leading stride are 16-byte aligned; else the kernel copies
+    one element at a time from any strides.
+    """
+    m, k = a.shape
+    n = b.shape[1]
+    vec = 16 // a.element_size()
+    band_rows = 16 if -(-m // 16) >= 2 * n_sm else 8
+    vec_a = (a.stride(1) == 1 and k % vec == 0
+             and (m == 1 or a.stride(0) % vec == 0)
+             and a.data_ptr() % 16 == 0)
+    vec_b = (b.stride(0) == 1 and k % vec == 0
+             and (n == 1 or b.stride(1) % vec == 0)
+             and b.data_ptr() % 16 == 0)
+    return {"band_rows": band_rows, "vec_a": vec_a, "vec_b": vec_b}
 
 
 def matmul_ref(a, b) -> torch.Tensor:
@@ -92,14 +128,22 @@ def _matmul_cuda(a, b):
         return out
     if k == 0:
         return out.zero_()
-    fn = "matmul_f32_launch" if a.dtype == torch.float32 else "matmul_f64_launch"
+    f64 = a.dtype == torch.float64
     lib = _build.library("matmul", _SIGS)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+            a.stride(0), a.stride(1), b.stride(0), b.stride(1))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = getattr(lib, fn)(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-            a.stride(0), a.stride(1), b.stride(0), b.stride(1), stream,
-        )
+        if n <= NARROW_MAX_N:
+            plan = narrow_plan(a, b, torch.cuda.get_device_properties(
+                a.device).multi_processor_count)
+            fn = lib.matmul_narrow_f64_launch if f64 \
+                else lib.matmul_narrow_f32_launch
+            err = fn(*args, plan["band_rows"], int(plan["vec_a"]),
+                     int(plan["vec_b"]), stream)
+        else:
+            fn = lib.matmul_f64_launch if f64 else lib.matmul_f32_launch
+            err = fn(*args, stream)
     _build.check_launch(err, "matmul kernel")
     launches += 1
     return out

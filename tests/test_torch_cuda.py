@@ -10,8 +10,9 @@ that has no JAX:
 Tolerances: min-plus and admission are exact (small-integer sums, minimums
 and comparisons in float32); congestion and matmul are held to rtol 1e-5
 against the plain product because the two sum in different orders; batch
-members of one congestion call equal the single call bit for bit (the
-kernel's sums run in an order fixed by position).  lambda_2 on the card
+members of one congestion call, with or without extents, equal the single
+call on their unpadded incidence bit for bit (the kernel's sums run in an
+order fixed by position), and so does a batched dense MW solve.  lambda_2 on the card
 agrees with the CPU run from the same start block within rtol 1e-4, and a
 delta update on the card equals a rebuild exactly.
 """
@@ -101,34 +102,70 @@ def _incidence(rng, bt, p, s, hops=4):
     return b
 
 
-@pytest.mark.parametrize("bt,p,s", [(1, 1, 1), (3, 100, 37), (2, 1000, 700),
-                                    (4, 129, 4100)])
-def test_congestion_kernel_matches_plain(dev, bt, p, s):
+@pytest.mark.parametrize("bt,p,s,ext", [
+    (1, 1, 1, None), (3, 100, 37, None), (2, 1000, 700, None),
+    (4, 129, 4100, None),
+    # a filler member (no rows), S_b not a multiple of 4 under 16-byte copies
+    (4, 300, 4100, ([300, 171, 1, 0], [4100, 4097, 2, 4099])),
+    # odd S (single-float copies), S % 4 == 2 (8-byte copies)
+    (3, 260, 703, ([260, 129, 0], [703, 350, 1])),
+    (2, 1000, 702, ([999, 128], [701, 702])),
+])
+def test_congestion_kernel_matches_plain(dev, bt, p, s, ext):
     rng = np.random.default_rng(bt * p + s)
-    b = torch.from_numpy(_incidence(rng, bt, p, s)).to(dev)
-    r = torch.from_numpy(rng.random((bt, p), np.float32)).to(dev)
-    w = torch.from_numpy(rng.random((bt, s), np.float32) * 1e-3).to(dev)
+    b = _incidence(rng, bt, p, s)
+    r = rng.random((bt, p), np.float32)
+    w = rng.random((bt, s), np.float32) * 1e-3
+    rows, cols = ext if ext is not None else ([p] * bt, [s] * bt)
+    for i, (pi, si) in enumerate(zip(rows, cols)):
+        # beyond the extents: NaN, which any read would spread
+        b[i, pi:], b[i, :, si:], r[i, pi:], w[i, si:] = (np.nan,) * 4
+    b, r, w = (torch.from_numpy(x).to(dev) for x in (b, r, w))
     before = kernels.launch_counts()
-    loads, costs = congestion(b, r, w)
+    loads, costs = congestion(b, r, w, extents=ext)
     after = kernels.launch_counts()
     assert after["congestion_batch"] == before["congestion_batch"] + 1
-    ref_l, ref_c = congestion_ref(b, r, w)
+    ref_l, ref_c = congestion_ref(b, r, w, extents=ext)
     torch.testing.assert_close(loads, ref_l, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(costs, ref_c, rtol=1e-5, atol=1e-8)
-    # each batch member equals the single call bit for bit, and so does the
-    # member zero-padded to a larger envelope
-    for i in range(bt):
-        l1, c1 = congestion(b[i].contiguous(), r[i].contiguous(),
-                            w[i].contiguous())
-        assert torch.equal(l1, loads[i]) and torch.equal(c1, costs[i])
-        bp = torch.zeros((p + 70, s + 300), device=dev)
-        bp[:p, :s] = b[i]
-        rp = torch.zeros(p + 70, device=dev)
-        rp[:p] = r[i]
-        wp = torch.zeros(s + 300, device=dev)
-        wp[:s] = w[i]
+    # each member equals the single call on its unpadded incidence bit for
+    # bit (zeros beyond the extents), and so does that incidence
+    # zero-padded to a larger envelope
+    for i, (pi, si) in enumerate(zip(rows, cols)):
+        assert not loads[i, si:].any() and not costs[i, pi:].any()
+        if pi == 0:
+            assert not loads[i].any()
+            continue
+        bi = b[i, :pi, :si].contiguous()
+        ri, wi = r[i, :pi].contiguous(), w[i, :si].contiguous()
+        l1, c1 = congestion(bi, ri, wi)
+        assert torch.equal(l1, loads[i, :si]) and torch.equal(c1, costs[i, :pi])
+        bp = torch.zeros((pi + 70, si + 300), device=dev)
+        bp[:pi, :si] = bi
+        rp = torch.zeros(pi + 70, device=dev)
+        rp[:pi] = ri
+        wp = torch.zeros(si + 300, device=dev)
+        wp[:si] = wi
         lp, cp = congestion(bp, rp, wp)
-        assert torch.equal(lp[:s], l1) and torch.equal(cp[:p], c1)
+        assert torch.equal(lp[:si], l1) and torch.equal(cp[:pi], c1)
+
+
+def test_dense_batch_equals_sequential_on_card(dev):
+    """A ragged batch over the members' extents (bucketed to 4 with an empty
+    filler) equals the sequential dense solves bit for bit."""
+    clear_routing_cache()
+    systems = []
+    for n, d, seed in ((40, 5, 0), (64, 6, 1), (30, 4, 2)):
+        top = jellyfish(n, d + 3, d, seed=seed)
+        systems.append(build_path_system(
+            top, random_permutation_traffic(top, seed=seed), k=8,
+            max_slack=3, device=dev, cache=False))
+    bat = mw_concurrent_flow_batch(systems, iters=150, backend="dense",
+                                   device=dev)
+    for ps, got in zip(systems, bat):
+        want = mw_concurrent_flow(ps, iters=150, backend="dense", device=dev)
+        assert got.alpha == want.alpha
+        assert np.array_equal(got.rates, want.rates)
 
 
 def test_apsp_minplus_blocked_on_card(dev):
@@ -194,7 +231,12 @@ def _within_forward_bound(c, a, b):
 @pytest.mark.parametrize("m,k,n,dtype", [
     (1, 1, 1, torch.float32), (65, 33, 130, torch.float32),
     (1024, 1024, 1024, torch.float32), (4096, 4096, 8, torch.float32),
-    (300, 517, 70, torch.float64), (7, 300, 5, torch.float64)])
+    (300, 517, 70, torch.float64), (7, 300, 5, torch.float64),
+    # the narrow kernel (N <= 16): odd K takes its single-element copies
+    (1, 8191, 1, torch.float32), (792, 791, 8, torch.float32),
+    (792, 792, 8, torch.float32), (8192, 1025, 16, torch.float32),
+    (8192, 8192, 8, torch.float32), (792, 792, 8, torch.float64),
+    (8192, 513, 1, torch.float64), (1, 4097, 16, torch.float64)])
 def test_matmul_kernel_matches_plain(dev, m, k, n, dtype):
     rng = np.random.default_rng(m + k + n)
     a = torch.from_numpy(rng.standard_normal((m, k))).to(dev, dtype)

@@ -23,6 +23,11 @@ Tolerances, and why each holds:
   differ by up to 2.6e-3.  The bound sits just above the largest reading.
 * Within the port, a batched solve equals the sequential one bit for bit
   under ``gather`` (CT-batch), ragged envelopes and adaptive stops included.
+* The batched ``dense`` closure over each member's real extents: exact
+  zeros beyond them, and on the real positions the sums of the full padded
+  stack (rtol 1e-6: the CPU's plain version slices each member, so BLAS
+  blocks the products differently; on the card the kernel's sums are the
+  same bit for bit, held by ``tests/test_torch_cuda.py``).
 """
 
 import dataclasses
@@ -113,6 +118,64 @@ def test_mw_short_horizon_matches_reference(idx, ref_be, port_be):
     assert got.max_load == pytest.approx(want.max_load, rel=1e-5)
     np.testing.assert_allclose(got.rates, want.rates, rtol=1e-4, atol=1e-7)
     assert got.iters == want.iters == 10
+
+
+def _solver_inputs(batch, seed):
+    """Rates and prices as the MW step makes them: zero rates on padded
+    rows (the dummy commodity has no demand), zero prices on padded slots
+    (masked softmax times zero inverse capacity)."""
+    rng = np.random.default_rng(seed)
+    dem = np.take_along_axis(batch.demands, batch.path_owner, axis=1)
+    rates = rng.random(dem.shape, np.float32) * dem
+    prices = rng.random(batch.inv_cap.shape, np.float32) * batch.slot_valid \
+        * batch.inv_cap
+    return torch.from_numpy(rates), torch.from_numpy(prices)
+
+
+def test_dense_batch_closure_over_extents_is_exact():
+    ports = [p for _, p in SYSTEMS] + [port_flow._empty_path_system()]
+    batch = port_flow.PathSystemBatch.from_systems(ports)
+    pe = torch.from_numpy(batch.path_edges)
+    B, S = batch.n_batch, batch.s_max
+    n_slots = [ps.n_slots for ps in batch.systems]
+    rates, prices = _solver_inputs(batch, 0)
+    full = port_flow.make_congestion_fn_batch(pe, S, B, "dense")
+    ext = port_flow.make_congestion_fn_batch(
+        pe, S, B, "dense", extents=(batch.n_paths, n_slots))
+    (fl, fc), (el, ec) = full(rates, prices), ext(rates, prices)
+    b3 = torch.stack([port_flow.dense_incidence(pe[i], S) for i in range(B)])
+    inv = torch.from_numpy(batch.inv_cap)
+    for i, (p, s) in enumerate(zip(batch.n_paths.tolist(), n_slots)):
+        # the stack's padding is not empty: sentinel hits at column s
+        assert p == 0 or b3[i, :, s].any()
+        assert not el[i, s:].any() and not ec[i, p:].any()
+        torch.testing.assert_close(el[i, :s], fl[i, :s], rtol=1e-6, atol=0)
+        torch.testing.assert_close(ec[i, :p], fc[i, :p], rtol=1e-6, atol=0)
+        # what the full call computes past the extents is priced at zero
+        assert not (fl[i, s:] * inv[i, s:]).any()
+    # reading the padding or not gives the same bits at the same shape
+    cut = b3.clone()
+    for i, (p, s) in enumerate(zip(batch.n_paths.tolist(), n_slots)):
+        cut[i, p:] = 0.0
+        cut[i, :, s:] = 0.0
+    zl, zc = port_flow.ops.congestion(cut, rates, prices)
+    n = batch.n_paths.tolist()
+    assert all(torch.equal(zl[i, :s], fl[i, :s])
+               and torch.equal(zc[i, :p], fc[i, :p])
+               for i, (p, s) in enumerate(zip(n, n_slots)))
+
+
+@pytest.mark.parametrize("iters,rtol", [(10, 1e-5), (400, 5e-3)])
+def test_mw_batch_dense_over_extents_matches_reference(iters, rtol):
+    refs = [r for r, _ in SYSTEMS]
+    ports = [p for _, p in SYSTEMS]
+    want = R.mw_concurrent_flow_batch(refs, iters=iters, backend="dense")
+    got = T.mw_concurrent_flow_batch(ports, iters=iters, backend="dense",
+                                     device=CPU)
+    for g, w in zip(got, want):
+        assert g.method == "mw-batch-dense" and g.iters == iters
+        assert g.alpha == pytest.approx(w.alpha, rel=rtol)
+        assert np.all(np.isfinite(g.rates))
 
 
 def test_mw_batch_short_horizon_matches_reference():

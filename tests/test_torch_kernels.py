@@ -4,7 +4,8 @@ numpy-seeded inputs.
 
 Tolerances: min-plus and the admission mask are exact (sums and minimums of
 small integers, and comparisons, are exact in float32).  Congestion is held
-to rtol 1e-5: both sides accumulate float32 products, in different orders.
+to rtol 1e-5: both sides accumulate float32 products, in different orders;
+its outputs beyond a member's extents are exact zeros.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -20,7 +21,11 @@ from repro.kernels.congestion import congestion_pallas
 from repro.kernels.minplus import minplus_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels.admission import admission, admission_prune
-from repro_torch.kernels.congestion import congestion
+from repro_torch.kernels.congestion import (
+    check_extents,
+    congestion,
+    vector_width,
+)
 from repro_torch.kernels.minplus import minplus
 
 
@@ -98,6 +103,102 @@ def test_congestion_against_pallas(shape):
     np.testing.assert_allclose(gc.numpy(), np.asarray(wc), rtol=1e-5)
     loads = ops.congestion_loads(torch.from_numpy(b), torch.from_numpy(r))
     np.testing.assert_allclose(loads.numpy(), np.asarray(wl), rtol=1e-5)
+
+
+def _padded_stack(rng, rows, cols, P, S):
+    """A (Bt, P, S) stack of 0/1 incidences, member b real in its
+    (rows[b], cols[b]) block, with the batched solver's padding: the
+    member's sentinel column ``cols[b]`` is hit by every padded row and by
+    some real rows, and the padded region holds other stray ones too."""
+    b = np.zeros((len(rows), P, S), np.float32)
+    for i, (p, s) in enumerate(zip(rows, cols)):
+        if p and s:
+            b[i, :p, :s] = _incidence(rng, (p, s))
+        if s < S:
+            b[i, :, s] = 1.0
+            b[i, p:, s + 1:] = rng.random((P - p, S - s - 1)) < 0.3
+        b[i, p:, :s] = rng.random((P - p, s)) < 0.3
+    return b
+
+
+@pytest.mark.parametrize("rows,cols,P,S", [
+    ([40, 25, 0, 33], [48, 30, 17, 45], 40, 48),
+    ([7, 1, 20], [9, 3, 21], 20, 21),
+], ids=str)
+def test_congestion_extents_against_pallas(rows, cols, P, S):
+    rng = np.random.default_rng(P * S)
+    b = _padded_stack(rng, rows, cols, P, S)
+    r = rng.random((len(rows), P), np.float32)
+    w = rng.random((len(rows), S), np.float32)
+    args = [torch.from_numpy(x) for x in (b, r, w)]
+    gl, gc = congestion(*args, extents=(torch.tensor(rows), np.array(cols)))
+    for i, (p, s) in enumerate(zip(rows, cols)):
+        # exact zeros beyond the extents
+        assert not gl[i, s:].any() and not gc[i, p:].any()
+        if p == 0:
+            assert not gl[i].any()
+            continue
+        wl, wc = congestion_pallas(jnp.asarray(b[i, :p, :s]),
+                                   jnp.asarray(r[i, :p]), jnp.asarray(w[i, :s]),
+                                   bp=8, be=8, interpret=True)
+        np.testing.assert_allclose(gl[i, :s].numpy(), np.asarray(wl),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(gc[i, :p].numpy(), np.asarray(wc),
+                                   rtol=1e-5)
+
+
+def test_congestion_rank2_extents_against_pallas():
+    rng = np.random.default_rng(11)
+    b = _padded_stack(rng, [30], [41], 36, 50)[0]
+    r, w = rng.random(36, np.float32), rng.random(50, np.float32)
+    gl, gc = congestion(*(torch.from_numpy(x) for x in (b, r, w)),
+                        extents=(30, 41))
+    wl, wc = congestion_pallas(jnp.asarray(b[:30, :41]), jnp.asarray(r[:30]),
+                               jnp.asarray(w[:41]), bp=8, be=8, interpret=True)
+    np.testing.assert_allclose(gl[:41].numpy(), np.asarray(wl), rtol=1e-5)
+    np.testing.assert_allclose(gc[:30].numpy(), np.asarray(wc), rtol=1e-5)
+    assert not gl[41:].any() and not gc[30:].any()
+    # the full extent is the call without extents
+    full = congestion(*(torch.from_numpy(x) for x in (b, r, w)))
+    same = congestion(*(torch.from_numpy(x) for x in (b, r, w)),
+                      extents=(36, 50))
+    assert all(torch.equal(x, y) for x, y in zip(full, same))
+
+
+@pytest.mark.parametrize("extents,match", [
+    (([5, 2], [4, 3]), r"must be \(3,\) integers"),
+    (([5, 2, 1], [4, 3]), r"must be \(3,\) integers"),
+    (([6, 2, 1], [4, 3, 0]), r"lie in \[0, 5\]"),
+    (([5, 2, 1], [4, 3, 8]), r"lie in \[0, 7\]"),
+    (([5, -1, 1], [4, 3, 0]), r"lie in \[0, 5\]"),
+    (([5.0, 2.0, 1.0], [4, 3, 0]), "integers"),
+    (([5, 2, 1],), "a pair"),
+], ids=str)
+def test_congestion_rejects_bad_extents(extents, match):
+    b = torch.zeros((3, 5, 7))
+    r, w = torch.zeros((3, 5)), torch.zeros((3, 7))
+    with pytest.raises(ValueError, match=match):
+        congestion(b, r, w, extents=extents)
+    with pytest.raises(ValueError, match=match):
+        check_extents(extents, b.shape)
+
+
+def test_congestion_rank2_extents_are_ints():
+    with pytest.raises(ValueError, match="must be an int"):
+        check_extents(([3], [4]), (5, 7))
+    rows, cols = check_extents((torch.tensor(3), np.int64(4)), (5, 7))
+    assert rows.tolist() == [3] and cols.tolist() == [4]
+
+
+def test_congestion_vector_width():
+    # 16-byte copies when rows are a multiple of 4 floats and B is aligned,
+    # then 8-byte, then single floats
+    assert vector_width(torch.zeros((3, 12960))) == 4
+    assert vector_width(torch.zeros((2, 3, 14))) == 2
+    assert vector_width(torch.zeros((3, 13))) == 1
+    base = torch.zeros(4 * 64 + 2)
+    assert vector_width(base[2:].view(4, 64)) == 2
+    assert vector_width(base[1:257].view(4, 64)) == 1
 
 
 def test_congestion_rejects_mismatched_shapes():

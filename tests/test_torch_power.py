@@ -30,7 +30,12 @@ from repro.kernels import ref
 from repro.kernels.power import matmul_pallas
 from repro_torch import kernels
 from repro_torch.kernels import ops
-from repro_torch.kernels.power import check_matmul_dtype, matmul, matmul_ref
+from repro_torch.kernels.power import (
+    check_matmul_dtype,
+    matmul,
+    matmul_ref,
+    narrow_plan,
+)
 
 # tests/test_kernels.py's (m, k, n) sweep: unaligned, degenerate and
 # tile-straddling shapes
@@ -129,6 +134,54 @@ def test_matmul_on_cpu_launches_no_kernel():
     kernels.reset_launch_counts()
     matmul(torch.ones((4, 4)), torch.ones((4, 4)))
     assert kernels.launch_counts()["matmul"] == 0
+
+
+def _narrow_operands(m, k, n, dtype, layout):
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.standard_normal((m, k))).to(dtype)
+    b = torch.from_numpy(rng.standard_normal((k, n))).to(dtype)
+    if layout == "transposed_a":
+        a = a.T.contiguous().T
+    elif layout == "column_major_b":
+        b = b.T.contiguous().T
+    return a, b
+
+
+@pytest.mark.parametrize("m,k,n,dtype,layout", [
+    (1, 8191, 1, torch.float32, "contiguous"),
+    (792, 791, 8, torch.float32, "column_major_b"),
+    (64, 33, 16, torch.float32, "transposed_a"),
+    (300, 517, 8, torch.float64, "column_major_b"),
+    (17, 64, 5, torch.float64, "transposed_a"),
+], ids=str)
+def test_narrow_matmul_cpu_contract(m, k, n, dtype, layout):
+    """The narrow shapes on CPU tensors: no launch, exactly the plain
+    version, whatever the operands' strides."""
+    a, b = _narrow_operands(m, k, n, dtype, layout)
+    kernels.reset_launch_counts()
+    got = matmul(a, b)
+    assert kernels.launch_counts()["matmul"] == 0
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, matmul_ref(a, b))
+
+
+def test_narrow_plan_band_height_and_copies():
+    # the spectral path: 8192 rows, QR's column-major Q; 132 SMs
+    a = torch.zeros((8192, 8192))
+    q = torch.zeros((8, 8192)).T
+    assert narrow_plan(a, q, 132) == {"band_rows": 16, "vec_a": True,
+                                      "vec_b": True}
+    # 792 rows: 8-row bands (99 blocks); a row-major B is copied by element
+    a792 = torch.zeros((792, 792))
+    assert narrow_plan(a792, torch.zeros((792, 8)), 132) == {
+        "band_rows": 8, "vec_a": True, "vec_b": False}
+    # a transposed A, an odd K, float64 (two elements per 16 bytes)
+    assert not narrow_plan(a792.T, q[:792], 132)["vec_a"]
+    odd = narrow_plan(torch.zeros((100, 8191)), torch.zeros((8, 8191)).T, 132)
+    assert not odd["vec_a"] and not odd["vec_b"]
+    f64 = narrow_plan(torch.zeros((10, 6), dtype=torch.float64),
+                      torch.zeros((1, 6), dtype=torch.float64).T, 132)
+    assert f64["vec_a"] and f64["vec_b"]
 
 
 def _v0(n, block=8, seed=0):
