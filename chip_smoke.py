@@ -27,8 +27,15 @@ line per phase:
                from CUDA events where two profiler sessions record no
                device activity, with the timer named; the wrapper's
                per-call stream time from CUDA events beside it).
+               Before them, the card's add-min issue rates
+               (``minplus.pair_rate``: DPX ``__viaddmin_s16x2`` and the
+               float32 FADD + FMNMX pair), which bound both min-plus forms,
+               and the compiler's register and spill report of both.
 3. ``apsp``    APSP of a seeded RRG(8192, 48 ports, degree 36) through
-               ``apsp_minplus_blocked`` on the card, equal to the host BFS.
+               ``apsp_minplus_blocked`` on the card (the driver's form,
+               int16) and through ``apsp_minplus`` (the float32 kernel),
+               each equal to the host BFS; each form's 8192^3 squaring
+               equal to its plain version and timed.
    ``spectral``  lambda_2 of the same RRG's Laplacian by
                ``ops.power_iteration_lambda2`` on the card (300 iterations,
                a block of 8, one fixed start block): 301 matmul launches,
@@ -54,7 +61,8 @@ line per phase:
                ``method="mw"`` at the k=24 equipment (k=16 when the probe
                shows it would not fit the time budget), plus a small
                bisection whose count must equal the CPU run's.
-6. ``kernels`` per kernel: launches on each path (``spectral``, the probe,
+6. ``kernels`` per kernel: launches on each path (``apsp``, ``apsp_f32``,
+               ``spectral``, the probe,
                ``alpha_of``, ``expansion`` and the bisection, each run with
                the counts set to 0 just before it and read just after; each
                kernel must be launched by the paths that use it), largest
@@ -82,6 +90,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 #: 67 TFLOP/s peak counts a fused multiply-add as two operations).
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 67e12 / 2
+#: A min-plus (i, j, k) pair in float32 is two of those instructions (FADD,
+#: FMNMX); the DPX rate of the int16 form has no data sheet and is measured.
+FP32_PAIRS_PER_S = FP32_INSTR_PER_S / 2
 
 #: Fig 1c probe size: the equipment of a k=24 fat-tree (720 switches of 24
 #: ports, 3456 servers in the fat-tree) hosting 1.25x the servers.
@@ -119,6 +130,38 @@ def bound_ms(n_bytes: float, n_instr: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_instr / FP32_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def minplus_bound_ms(n_bytes: float, n_pairs: float,
+                     dpx_pairs_per_s: float) -> dict:
+    """The least time for a min-plus product of ``n_pairs`` (i, j, k) pairs
+    over the ways the card offers: float32 (two instructions a pair at the
+    data sheet's issue rate) or DPX (at the measured pair rate); both forms
+    are bounded by the same pairs.  Bytes: the form's own operands read once
+    and its output written once."""
+    t_fp32 = n_pairs / FP32_PAIRS_PER_S * 1e3
+    t_dpx = n_pairs / dpx_pairs_per_s * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = min(t_fp32, t_dpx)
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fp32_bound_ms": t_fp32, "dpx_bound_ms": t_dpx}
+
+
+def ptxas_report(log: str, names) -> dict:
+    """Registers, spills and shared memory per kernel entry from
+    ``nvcc -Xptxas -v`` output, for the entries whose name holds one of
+    ``names``."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            cur = entry if any(n in entry for n in names) else None
+            if cur:
+                out[cur] = []
+        elif cur and ("Used" in line or "spill" in line):
+            out[cur].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def main() -> None:
@@ -161,7 +204,15 @@ def main() -> None:
     from repro_torch.kernels import _build, admission as adm_mod, ops
     from repro_torch.kernels.admission import admission, admission_ref
     from repro_torch.kernels.congestion import congestion, congestion_ref
-    from repro_torch.kernels.minplus import minplus, minplus_ref
+    from repro_torch.kernels.minplus import (
+        INT16_INF,
+        launch_plan,
+        minplus,
+        minplus_hops,
+        minplus_hops_ref,
+        minplus_ref,
+        pair_rate,
+    )
     from repro_torch.kernels.power import matmul, matmul_ref
 
     t_start = time.perf_counter()
@@ -182,7 +233,8 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
-    def device_ms(fn, reps: int, kernels_named=None) -> tuple[float, str]:
+    def device_ms(fn, reps: int, kernels_named=None,
+                  warm: bool = True) -> tuple[float, str]:
         """Mean device milliseconds per call of ``fn()``, and the timer.
 
         From the profiler: with ``kernels_named``, the sum over those
@@ -192,8 +244,10 @@ def main() -> None:
         CUPTI tracing sometimes records no device activity for a session;
         then a second session is tried, and if that sees none either the
         time is the stream's time per call from CUDA events (``sync_time``,
-        host launch overhead included), and the timer says so."""
-        fn()
+        host launch overhead included), and the timer says so.  ``warm``
+        makes one call first (a caller that already made one may skip it)."""
+        if warm:
+            fn()
         torch.cuda.synchronize()
         for _ in range(2):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -233,6 +287,11 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_seconds": per_kernel,
           "build_dir": str(_build.BUILD_DIR.relative_to(ROOT))})
+    # the compiler's report of both min-plus forms (built in this run)
+    mp_log = _build.BUILD_LOG.get("minplus", {}).get("log")
+    emit({"phase": "ptxas", "minplus": (
+        ptxas_report(mp_log, ("minplus_f32_kernel", "minplus_hops_kernel"))
+        if mp_log is not None else "not built in this run")})
 
     # ---- 2. every kernel against its plain version ------------------------ #
     eq = fattree_equipment(K_FULL)
@@ -261,23 +320,75 @@ def main() -> None:
     finally:
         adm_mod.admission = plain_admission
 
+    mp_rng = np.random.default_rng(14)
+
+    def rng_hops(rows, cols):
+        """Hop counts 0..8 with a fifth of the entries +inf."""
+        x = mp_rng.integers(0, 9, size=(rows, cols)).astype(np.float32)
+        x[mp_rng.random((rows, cols)) < 0.2] = np.inf
+        return x
+
     results = {}
-    # min-plus: the first APSP squaring of the probe topology (720 x 720)
+    # the card's add-min pair rates: DPX bounds the int16 form, and the
+    # float32 pair is held beside the data sheet's rate
+    rates = {f: pair_rate(f, device=dev) for f in ("dpx", "f32")}
+    dpx_rate = rates["dpx"]
+
+    def to_hops(t):
+        return torch.where(torch.isfinite(t), t, float(INT16_INF)).to(
+            torch.int16)
+
+    # min-plus: the first APSP squaring of the probe topology (720 x 720),
+    # float32 (+inf) and the int16 form the APSP driver squares (sentinel)
     a = torch.from_numpy(top.adjacency()).to(dev)
     d0 = torch.where(a > 0, 1.0, float("inf")).to(torch.float32)
     d0.fill_diagonal_(0.0)
-    got = minplus(d0, d0)
-    want = minplus_ref(d0, d0)
-    check(torch.equal(got, want), "min-plus kernel differs from plain")
+    h0 = to_hops(d0)
+    check(torch.equal(minplus(d0, d0), minplus_ref(d0, d0)),
+          "min-plus kernel differs from plain")
+    check(torch.equal(minplus_hops(h0, h0), minplus_hops_ref(h0, h0)),
+          "int16 min-plus kernel differs from plain")
+    # ragged shapes with +inf / sentinel entries, both forms
+    for m_, k_, n_ in ((1, 1, 1), (65, 33, 130), (7, 300, 5),
+                       (721, 333, 1000)):
+        x = torch.from_numpy(rng_hops(m_, k_)).to(dev)
+        y = torch.from_numpy(rng_hops(k_, n_)).to(dev)
+        check(torch.equal(minplus(x, y), minplus_ref(x, y)),
+              f"min-plus kernel differs from plain at {(m_, k_, n_)}")
+        hx, hy = to_hops(x), to_hops(y)
+        hx[0, 0] = -1  # a negative entry loads as 0 in both versions
+        check(torch.equal(minplus_hops(hx, hy), minplus_hops_ref(hx, hy)),
+              f"int16 min-plus kernel differs from plain at {(m_, k_, n_)}")
     n = d0.shape[0]
-    # an add and a min per (i, j, k)
-    b_ms, b_by = bound_ms(4.0 * 3 * n * n, 2.0 * n ** 3)
+    mp_names = ["minplus_f32_kernel", "minplus_reduce_kernel"]
+    hops_names = ["minplus_hops_kernel", "minplus_reduce_kernel"]
     results["minplus"] = {
-        "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": [n, n, n],
-        **timings(lambda: minplus(d0, d0), ["minplus_kernel"],
+        "max_abs_err": 0.0, "shape": [n, n, n],
+        **minplus_bound_ms(4.0 * 3 * n * n, float(n) ** 3, dpx_rate),
+        **timings(lambda: minplus(d0, d0), mp_names,
                   lambda: minplus_ref(d0, d0), None, 20),
     }
+    results["minplus_hops"] = {
+        "max_abs_err": 0.0, "shape": [n, n, n],
+        **minplus_bound_ms(2.0 * 3 * n * n, float(n) ** 3, dpx_rate),
+        **timings(lambda: minplus_hops(h0, h0), hops_names,
+                  lambda: minplus_hops_ref(h0, h0), None, 20),
+    }
+    # the planned split's product and reduction, each timed alone from the
+    # same wrapper calls
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for key, fn_, names, hops in (
+            ("minplus", lambda: minplus(d0, d0), mp_names, False),
+            ("minplus_hops", lambda: minplus_hops(h0, h0), hops_names, True)):
+        plan = launch_plan(n, n, n, n_sm, hops=hops)
+        results[key]["plan"] = {k_: plan[k_] for k_ in ("splits", "blocks")}
+        results[key]["ms_by_kernel"] = {
+            n_: device_ms(fn_, 20, [n_])[0]
+            for n_ in names[:1 + (plan["splits"] > 1)]}
+    results["minplus_rates"] = {
+        "dpx_pairs_per_s": dpx_rate, "f32_pairs_per_s": rates["f32"],
+        "f32_data_sheet_pairs_per_s": FP32_PAIRS_PER_S}
+    del a, d0, h0
 
     # admission: the largest level of the probe's builds
     d, r, c, p = captured["args"]
@@ -489,36 +600,65 @@ def main() -> None:
     emit({"phase": "kernel_checks", "results": results})
 
     # ---- 3. APSP of RRG(8192, 48, 36) on the card -------------------------- #
+    # the driver's own form (int16 at this size), then the float32 kernel
+    # through the dense float backend (one whole-matrix product a squaring,
+    # the same number of squarings), brought to the canonical int16 form
+    def apsp_f32(adj_):
+        d = ops.apsp_minplus(adj_, device=dev)
+        return torch.where(torch.isfinite(d), d, float(INT16_INF)).to(
+            torch.int16).cpu().numpy()
+
     launches = {}
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dist = ops.apsp_minplus_blocked(adj, device=dev)
-    apsp_s = time.perf_counter() - t0
-    launches["apsp"] = kernels.launch_counts()
+    apsp_s = {}
+    dists = {}
+    for path, run_apsp in (
+            ("apsp", lambda: ops.apsp_minplus_blocked(adj, device=dev)),
+            ("apsp_f32", lambda: apsp_f32(adj))):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dists[path] = run_apsp()
+        apsp_s[path] = time.perf_counter() - t0
+        launches[path] = kernels.launch_counts()
     t0 = time.perf_counter()
     want = apsp_hops_blocked(adj)
     bfs_s = time.perf_counter() - t0
-    check(np.array_equal(dist, want), "RRG(8192) min-plus APSP != host BFS")
-    dfull = torch.from_numpy(dist.astype(np.float32)).to(dev)
-    sq_ms, sq_timer = device_ms(lambda: minplus(dfull, dfull), 3,
-                                ["minplus_kernel"])
-    sq_call_ms = sync_time(lambda: minplus(dfull, dfull), 3)
-    # the plain version once at this size: 8192 one-column strips
-    sq_plain_ms, sq_plain_timer = device_ms(lambda: minplus_ref(dfull, dfull),
-                                            1)
-    nn = dfull.shape[0]
-    sq_bound, sq_by = bound_ms(4.0 * 3 * nn * nn, 2.0 * nn ** 3)
-    emit({"phase": "apsp", "n": nn, "seconds": apsp_s,
-          "host_bfs_seconds": bfs_s, "diameter": int(dist.max()),
-          "squaring_ms": sq_ms, "squaring_timer": sq_timer,
-          "squaring_call_ms": sq_call_ms,
-          "squaring_plain_ms": sq_plain_ms,
-          "squaring_plain_timer": sq_plain_timer,
-          "squaring_bound_ms": sq_bound,
-          "squaring_bound_by": sq_by, "equal_to_bfs": True,
-          "launches": launches["apsp"]})
-    del dfull, dist, want
+    check(np.array_equal(dists["apsp"], want),
+          "RRG(8192) min-plus APSP != host BFS")
+    check(np.array_equal(dists["apsp_f32"], want),
+          "RRG(8192) float32 min-plus APSP != host BFS")
+    # the first squaring of the APSP (one-hop matrix: 0 diagonal, 1 per
+    # edge, no path elsewhere) in each form, against its plain version (run
+    # once each at this size: 8192 one-column strips)
+    nn = adj.shape[0]
+    dfull = torch.where(torch.from_numpy(adj).to(dev) > 0, 1.0,
+                        float("inf")).to(torch.float32)
+    dfull.fill_diagonal_(0.0)
+    hfull = to_hops(dfull)
+    squaring = {}
+    for form, kern, plain, x, names, nbytes in (
+            ("f32", minplus, minplus_ref, dfull, mp_names, 4.0),
+            ("hops", minplus_hops, minplus_hops_ref, hfull, hops_names, 2.0)):
+        got = kern(x, x)
+        ref = plain(x, x)
+        check(torch.equal(got, ref),
+              f"{form} min-plus kernel differs from plain at 8192^3")
+        del got
+        ms, timer = device_ms(lambda: kern(x, x), 3, names)
+        plain_ms, plain_timer = device_ms(lambda: plain(x, x), 1, warm=False)
+        squaring[form] = {
+            "ms": ms, "timer": timer,
+            "call_ms": sync_time(lambda: kern(x, x), 3),
+            "plain_ms": plain_ms, "plain_timer": plain_timer,
+            **minplus_bound_ms(nbytes * 3 * nn * nn, float(nn) ** 3,
+                               dpx_rate)}
+        del ref
+    emit({"phase": "apsp", "n": nn, "form": ops.apsp_form(nn),
+          "seconds": apsp_s["apsp"], "f32_seconds": apsp_s["apsp_f32"],
+          "host_bfs_seconds": bfs_s, "diameter": int(dists["apsp"].max()),
+          "squaring": squaring, "equal_to_bfs": True,
+          "launches": launches["apsp"], "f32_launches": launches["apsp_f32"]})
+    del dfull, hfull, dists, want
     torch.cuda.empty_cache()
 
     # ---- 3'. spectral: lambda_2 of the same RRG by power iteration --------- #
@@ -790,6 +930,7 @@ def main() -> None:
         "congestion": "src/repro/kernels/congestion.py:78",
         "congestion_batch": "src/repro/kernels/congestion.py:99",
         "minplus": "src/repro/kernels/minplus.py:61",
+        "minplus_hops": "src/repro/kernels/minplus.py:61",
         "admission": "src/repro/kernels/admission.py:69",
         "matmul": "src/repro/kernels/power.py:50",
     }
@@ -797,18 +938,28 @@ def main() -> None:
         "congestion": "src/repro_torch/kernels/csrc/congestion.cu",
         "congestion_batch": "src/repro_torch/kernels/csrc/congestion.cu",
         "minplus": "src/repro_torch/kernels/csrc/minplus.cu",
+        "minplus_hops": "src/repro_torch/kernels/csrc/minplus.cu",
         "admission": "src/repro_torch/kernels/csrc/admission.cu",
         "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     }
     # the path that must launch each kernel; the probe and the bisection
-    # solve batched only, the expansion path single instances
+    # solve batched only, the expansion path single instances; every path
+    # that runs APSP launches the min-plus form the driver picks for its
+    # number of switches
+    def apsp_kernel(n_nodes: int) -> str:
+        return {"hops": "minplus_hops", "f32": "minplus"}[
+            ops.apsp_form(n_nodes)]
+
     expected = {
-        "apsp": ("minplus",),
+        "apsp": (apsp_kernel(nn),),
+        "apsp_f32": ("minplus",),
         "spectral": ("matmul",),
-        "probe": ("congestion_batch", "minplus", "admission"),
-        "alpha_of": ("congestion", "minplus", "admission"),
-        "expansion": ("congestion", "minplus", "admission", "matmul"),
-        "bisection": ("congestion_batch", "minplus", "admission"),
+        "probe": ("congestion_batch", apsp_kernel(n_sw), "admission"),
+        "alpha_of": ("congestion", apsp_kernel(n_sw), "admission"),
+        "expansion": ("congestion", apsp_kernel(cur.n_switches), "admission",
+                      "matmul"),
+        "bisection": ("congestion_batch", apsp_kernel(eq_b["switches"]),
+                      "admission"),
     }
     for path, names in expected.items():
         for name in names:
@@ -826,7 +977,9 @@ def main() -> None:
                      "timer": r["timer"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     **{k: r[k] for k in ("fp32_bound_ms", "dpx_bound_ms")
+                        if k in r}})
     emit({"kernels": rows})
 
     smi = subprocess.run(

@@ -4,7 +4,8 @@
 wrapper                    CUDA source (csrc/)             replaces (repro/...)
 =========================  ==============================  =====================
 ``congestion.congestion``  ``congestion.cu``               ``kernels/congestion.py``
-``minplus.minplus``        ``minplus.cu``                  ``kernels/minplus.py``
+``minplus.minplus``        ``minplus.cu`` (float32)        ``kernels/minplus.py``
+``minplus.minplus_hops``   ``minplus.cu`` (int16, DPX)     ``kernels/minplus.py``
 ``admission.admission``    ``admission.cu``                ``kernels/admission.py``
 ``power.matmul``           ``matmul.cu``                   ``kernels/power.py``
 =========================  ==============================  =====================
@@ -27,6 +28,7 @@ _COUNTERS = {
     "congestion": (congestion, "launches"),
     "congestion_batch": (congestion, "batch_launches"),
     "minplus": (minplus, "launches"),
+    "minplus_hops": (minplus, "hops_launches"),
     "admission": (admission, "launches"),
     "matmul": (power, "launches"),
 }
@@ -35,7 +37,8 @@ _COUNTERS = {
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since import or the last reset
     (``congestion`` counts single-incidence calls, ``congestion_batch``
-    stacked ones)."""
+    stacked ones; ``minplus`` the float32 form, ``minplus_hops`` the int16
+    form)."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 

@@ -22,7 +22,9 @@ ordered gathers over the padded path table, is answered here by
 
 ``apsp_minplus`` is APSP by dense min-plus squaring of an f32 matrix on the
 device; ``apsp_minplus_blocked`` keeps the canonical int16 hop matrix on the
-device and squares it one row band at a time.  ``power_iteration_lambda2``
+device and squares it one row band at a time, with the int16 (DPX) form of
+the product up to ``minplus.HOPS_MAX_N`` nodes and the float32 form above
+(``apsp_form``).  ``power_iteration_lambda2``
 is lambda_2 of the Laplacian by block power iteration, its ``A @ Q`` step
 through the matmul kernel.  Replaces ``repro/kernels/ops.py`` (ops.py:78-340).
 """
@@ -34,11 +36,14 @@ import torch
 
 from ..device import is_cuda, resolve
 from .congestion import congestion as _congestion
+from .minplus import HOPS_MAX_N
 from .minplus import minplus as _minplus
+from .minplus import minplus_hops as _minplus_hops
 from .power import matmul as _matmul
 
 __all__ = [
     "DENSE_INCIDENCE_BUDGET_BYTES",
+    "apsp_form",
     "apsp_minplus",
     "apsp_minplus_blocked",
     "congestion",
@@ -172,6 +177,14 @@ def _tiles_f32(d16: torch.Tensor) -> torch.Tensor:
     return t.masked_fill_(d16 == int(_INT16_INF), float("inf"))
 
 
+def apsp_form(n: int) -> str:
+    """The min-plus form ``apsp_minplus_blocked`` squares an n-node hop
+    matrix with: ``"hops"`` (int16, DPX) while n <= ``HOPS_MAX_N`` (16383),
+    where every true distance stays below the int16 form's working infinity,
+    ``"f32"`` above it.  A rule on the shape, decided before any launch."""
+    return "hops" if n <= HOPS_MAX_N else "f32"
+
+
 def apsp_minplus_blocked(
     adj,
     bm: int = 2048,
@@ -183,12 +196,15 @@ def apsp_minplus_blocked(
 
     The distance state stays on ``device`` in the canonical int16 form (two
     matrices, current and next power: ``4 N^2`` bytes; 134 MB each at
-    N = 8192).  Each squaring converts the current power to float32 once
-    and runs the min-plus product one ``bm``-row band at a time, writing
-    each band back as int16.  The fixed-point check (``torch.equal``) runs
-    after every squaring, so the driver always stops at a *certified* fixed
-    point bounded by the ``n - 1`` worst case; ``diameter_hint`` is
-    accepted for API symmetry with ``apsp_minplus`` and does not bound it.
+    N = 8192), and each squaring runs the min-plus product one ``bm``-row
+    band at a time, in the form ``apsp_form(N)`` picks: ``"hops"`` squares
+    the int16 state as it is, each band written straight into the next
+    power; ``"f32"`` (N > 16383) converts the current power to float32 once
+    a squaring and writes each band back as int16.  The
+    fixed-point check (``torch.equal``) runs after every squaring, so the
+    driver always stops at a *certified* fixed point bounded by the
+    ``n - 1`` worst case; ``diameter_hint`` is accepted for API symmetry
+    with ``apsp_minplus`` and does not bound it.
     """
     a = np.asarray(adj)
     n = a.shape[0]
@@ -197,24 +213,29 @@ def apsp_minplus_blocked(
             f"N = {n} >= int16 sentinel {int(_INT16_INF)}: distances could "
             "overflow the canonical int16 hop representation"
         )
-    d = np.full((n, n), _INT16_INF, dtype=np.int16)
-    d[a != 0] = 1
-    np.fill_diagonal(d, 0)
+    form = apsp_form(n)
     if n <= 1:
-        return d
+        return np.zeros((n, n), dtype=np.int16)
     del diameter_hint  # see docstring: the fixed-point check certifies
     dev = resolve(device)
-    cur = torch.from_numpy(d).to(dev)
+    # the one-hop matrix, built on the device from the adjacency
+    cur = torch.full((n, n), int(_INT16_INF), dtype=torch.int16, device=dev)
+    cur.masked_fill_(torch.as_tensor(a, device=dev) != 0, 1)
+    cur.fill_diagonal_(0)
     inf16 = float(_INT16_INF)
     for _ in range(max(_squarings_to_cover(n - 1), 1)):
-        df = _tiles_f32(cur)
         nxt = torch.empty_like(cur)
-        for i0 in range(0, n, bm):
-            band = _minplus(df[i0:i0 + bm], df)
-            # finite entries are true hop counts (< n < sentinel)
-            nxt[i0:i0 + bm] = torch.where(
-                torch.isfinite(band), band, inf16
-            ).to(torch.int16)
+        if form == "hops":
+            for i0 in range(0, n, bm):
+                _minplus_hops(cur[i0:i0 + bm], cur, out=nxt[i0:i0 + bm])
+        else:
+            df = _tiles_f32(cur)
+            for i0 in range(0, n, bm):
+                band = _minplus(df[i0:i0 + bm], df)
+                # finite entries are true hop counts (< n < sentinel)
+                nxt[i0:i0 + bm] = torch.where(
+                    torch.isfinite(band), band, inf16
+                ).to(torch.int16)
         if torch.equal(nxt, cur):
             return nxt.cpu().numpy()
         cur = nxt

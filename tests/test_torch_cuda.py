@@ -7,8 +7,9 @@ that has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: min-plus and admission are exact (small-integer sums, minimums
-and comparisons in float32); congestion and matmul are held to rtol 1e-5
+Tolerances: min-plus (both forms) and admission are exact (small-integer
+sums, minimums and comparisons in float32 and int16, split-K included:
+min does not depend on order); congestion and matmul are held to rtol 1e-5
 against the plain product because the two sum in different orders; batch
 members of one congestion call, with or without extents, equal the single
 call on their unpadded incidence bit for bit (the kernel's sums run in an
@@ -40,7 +41,14 @@ from repro_torch.core.routing import clear_routing_cache
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.admission import admission, admission_ref
 from repro_torch.kernels.congestion import congestion, congestion_ref
-from repro_torch.kernels.minplus import minplus, minplus_ref
+from repro_torch.kernels.minplus import (
+    INT16_INF,
+    minplus,
+    minplus_hops,
+    minplus_hops_ref,
+    minplus_ref,
+    pair_rate,
+)
 from repro_torch.kernels.power import matmul, matmul_ref
 
 pytestmark = pytest.mark.cuda
@@ -66,8 +74,12 @@ def test_kernels_build(dev):
         assert _build._lib_path(name).exists()
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (65, 33, 130), (128, 128, 128),
-                                   (720, 720, 720), (7, 300, 5)])
+_MINPLUS_SHAPES = [(1, 1, 1), (65, 33, 130), (128, 128, 128), (720, 720, 720),
+                   (7, 300, 5), (721, 333, 1000), (738, 738, 738),
+                   (2048, 8192, 8192)]
+
+
+@pytest.mark.parametrize("m,k,n", _MINPLUS_SHAPES)
 def test_minplus_kernel_exact(dev, m, k, n):
     rng = np.random.default_rng(m * 1000 + k)
     a = torch.from_numpy(_hops(rng, (m, k))).to(dev)
@@ -77,6 +89,41 @@ def test_minplus_kernel_exact(dev, m, k, n):
     torch.cuda.synchronize()
     assert kernels.minplus.launches == before + 1
     assert torch.equal(got, minplus_ref(a, b))
+
+
+def _int16(a):
+    return torch.where(torch.isfinite(a), a, float(INT16_INF)).to(torch.int16)
+
+
+@pytest.mark.parametrize("m,k,n", _MINPLUS_SHAPES + [(5, 6, 7), (4, 16, 10)])
+def test_minplus_hops_kernel_exact(dev, m, k, n):
+    rng = np.random.default_rng(m * 1000 + k)
+    a = _int16(torch.from_numpy(_hops(rng, (m, k))).to(dev))
+    b = _int16(torch.from_numpy(_hops(rng, (k, n))).to(dev))
+    # entries up to just below the working infinity 16383
+    a[0, 0], b[0, 0] = 16382, 1
+    before = kernels.launch_counts()
+    got = minplus_hops(a, b)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["minplus_hops"] == before["minplus_hops"] + 1
+    assert after["minplus"] == before["minplus"]
+    assert got.dtype == torch.int16
+    assert torch.equal(got, minplus_hops_ref(a, b))
+    # into a row band of a larger matrix (the APSP driver's call)
+    big = torch.full((m + 3, n), -1, dtype=torch.int16, device=dev)
+    minplus_hops(a, b, out=big[3:])
+    assert torch.equal(big[3:], got) and bool((big[:3] == -1).all())
+    # negative entries load as 0 in both versions (no 16-bit wrap)
+    a[a == 3] = -3
+    b[b == 5] = -32768
+    assert torch.equal(minplus_hops(a, b), minplus_hops_ref(a, b))
+
+
+def test_pair_rates_measured(dev):
+    for form in ("dpx", "f32"):
+        rate = pair_rate(form, device=dev, blocks_per_sm=2, iters=64)
+        assert np.isfinite(rate) and rate > 0
 
 
 @pytest.mark.parametrize("m,c,w", [(1, 1, 0), (300, 37, 5), (4096, 36, 6),
@@ -168,12 +215,18 @@ def test_dense_batch_equals_sequential_on_card(dev):
         assert np.array_equal(got.rates, want.rates)
 
 
-def test_apsp_minplus_blocked_on_card(dev):
+def test_apsp_minplus_blocked_on_card(dev, monkeypatch):
     top = jellyfish(300, 12, 8, seed=3)
-    before = kernels.minplus.launches
-    got = ops.apsp_minplus_blocked(top.adjacency(), bm=128, device=dev)
-    assert kernels.minplus.launches > before
-    np.testing.assert_array_equal(got, apsp_hops_blocked(top.adjacency()))
+    want = apsp_hops_blocked(top.adjacency())
+    # the int16 form (the driver's choice at this size), then float32, as
+    # the shape rule takes it above HOPS_MAX_N nodes
+    for limit, counter in ((ops.HOPS_MAX_N, "minplus_hops"), (0, "minplus")):
+        monkeypatch.setattr(ops, "HOPS_MAX_N", limit)
+        before = kernels.launch_counts()
+        got = ops.apsp_minplus_blocked(top.adjacency(), bm=128, device=dev)
+        after = kernels.launch_counts()
+        assert after[counter] > before[counter]
+        np.testing.assert_array_equal(got, want)
 
 
 def test_build_and_solve_on_card(dev):
@@ -188,7 +241,7 @@ def test_build_and_solve_on_card(dev):
                                cache=False)
     after = kernels.launch_counts()
     assert after["admission"] > before["admission"]
-    assert after["minplus"] > before["minplus"]
+    assert after["minplus_hops"] > before["minplus_hops"]
     for f in ("path_edges", "path_len", "path_owner", "demands"):
         np.testing.assert_array_equal(getattr(gpu_ps, f), getattr(cpu_ps, f))
     # CT-batch on the card: batched == sequential bit for bit under gather
