@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Runs the paper's Fig 1c capacity path, the spectral lambda_2 path and the
-incremental-expansion path at full width on the card and prints one JSON
-line per phase:
+Runs the paper's Fig 1c capacity path, the spectral lambda_2 path, the
+incremental-expansion path and the §5 routing paths (batched path-system
+builds with the build pipeline, ECMP, fluid MPTCP, the flow-level
+simulator) at full width on the card and prints one JSON line per phase:
 
 1. ``build``   compile the hand-written CUDA kernels from ``csrc/`` (one
                ``nvcc`` per source, started together).
@@ -57,13 +58,54 @@ line per phase:
                the card equals ``build_path_system(..., cache=False)`` on
                the card exactly, a warm-started MW solve is set against a
                cold one, and lambda_2 of the step's topology is computed.
+   ``build_batch``  the probe's 3 matrices as ONE
+               ``build_path_system_batch`` on the card, equal to 3 sequential
+               builds byte for byte, both timed in turns; then the probe
+               with the build pipeline on (``probe_batched``) and off
+               (``probe_sequential``: lazy sequential builds) in turns,
+               each with the probe's verdict and alphas.
+   ``ecmp``    Table 1: ``ecmp_path_system(n_ways=64)`` on a Jellyfish of
+               the k=14 fat-tree's equipment (245 switches x 14 ports, 686
+               servers) on the card, equal to the CPU build, with
+               ``path_diversity`` for ECMP and 8-shortest paths; the k=14
+               fat-tree's ECMP groups equal (k/2)^2 and k/2.
+   ``mptcp``   ``mptcp_throughput(iters=1500)`` on the probe's topology
+               (k=8) with ``dense`` (the single-incidence congestion kernel)
+               and with ``gather`` on the card, mean throughputs within the
+               CPU tests' 2e-6; Fig 8's MPTCP / LP optimum >= 0.86 at
+               ``tests/test_torch_mptcp.py``'s size.
+   ``sim``     the reference's ``ecmp_sim_512`` row: 8 seeds of
+               RRG(512, 24, 18), ``steady_poisson(160, rate=24, size=48)``,
+               ``SimConfig(max_flows=2048, max_arrivals=32, wf_iters=10)``,
+               ONE batched ``simulate`` per policy (``ecmp`` over ECMP path
+               systems, ``ksp_lc`` and ``mptcp`` over k=8; the batched
+               congestion kernel's load half); CT-sim on each, a same-seed
+               rerun equal bit for bit, ``waterfill_rates`` dense against
+               gather within rtol 1e-5, and ECMP's steady throughput dense
+               against gather within rtol 1e-3.  The rerun is traced
+               (``torch.profiler``, device activity): the congestion
+               kernel's device seconds and the device's idle share of its
+               window.  The loads half at the k=8 stack's shape is held
+               against its plain version (rtol 1e-5) and timed with CUDA
+               events beside the plain version, one ``torch.bmm`` and the
+               gather tables.
 5. ``bisection``  a whole ``max_servers_at_full_capacity`` search with
                ``method="mw"`` at the k=24 equipment (k=16 when the probe
-               shows it would not fit the time budget), plus a small
-               bisection whose count must equal the CPU run's.
+               shows it would not fit the time budget; ``k_reason`` says
+               which), plus a small bisection whose count must equal the
+               CPU run's.
+   ``bisection_pipeline``  the same search speculatively
+               (``wave_levels=2``, its build units through
+               ``stream_builds``) with the build pipeline on and off, each
+               equal to the sequential search's count, with
+               ``pipeline/stall_s`` and ``pipeline/overlap_s``; when the
+               budget is short this pair drops to k=16 (against a
+               sequential search there) before the search above does.
 6. ``kernels`` per kernel: launches on each path (``apsp``, ``apsp_f32``,
                ``spectral``, the probe,
-               ``alpha_of``, ``expansion`` and the bisection, each run with
+               ``alpha_of``, ``expansion``, ``build_batch``,
+               ``probe_sequential``, ``ecmp``, ``mptcp``, ``sim``, the
+               bisection and both wave bisections, each run with
                the counts set to 0 just before it and read just after; each
                kernel must be launched by the paths that use it), largest
                difference from the plain version, and the times of phase 2
@@ -164,6 +206,487 @@ def ptxas_report(log: str, names) -> dict:
     return {k: "; ".join(v) for k, v in out.items()}
 
 
+# --------------------------------------------------------------------------- #
+# the §5 routing paths (each a function, so a small CPU run can rehearse it)
+# --------------------------------------------------------------------------- #
+
+#: Fields that must match byte for byte between two builds of one system.
+SYSTEM_FIELDS = ("path_edges", "path_len", "path_owner", "demands", "src",
+                 "dst", "unrouted")
+#: The CPU tests' port-vs-reference bound on MPTCP per-commodity throughput
+#: (tests/test_torch_mptcp.py), held here to dense against gather.
+MPTCP_ATOL = 2e-6
+#: ECMP's path choice ignores loads, so dense and gather runs admit the same
+#: flows onto the same paths; their steady-state throughputs may differ by
+#: the dense product's rounding and any completion that it moves by a step.
+SIM_ECMP_RTOL = 1e-3
+
+
+def same_system(a, b, what: str) -> None:
+    """Two builds of one path system are equal byte for byte."""
+    import numpy as np
+
+    check(a.n_edges == b.n_edges and a.n_commodities == b.n_commodities,
+          f"{what}: sizes differ")
+    for f in SYSTEM_FIELDS:
+        check(np.array_equal(np.asarray(getattr(a, f)),
+                             np.asarray(getattr(b, f))),
+              f"{what}: {f} differs")
+
+
+class PathRun:
+    """Runs a path with every launch count set to 0 just before it and read
+    just after it, timing it on the host clock (synchronized on a card)."""
+
+    def __init__(self, dev, launches: dict):
+        self.dev = dev
+        self.launches = launches
+
+    def sync(self) -> None:
+        import torch
+
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def __call__(self, name: str, fn):
+        from repro_torch import kernels
+
+        kernels.reset_launch_counts()
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        secs = time.perf_counter() - t0
+        self.launches[name] = kernels.launch_counts()
+        return out, secs
+
+
+def build_batch_phase(top, run: PathRun, n_matrices: int = 3,
+                      k: int = 8) -> dict:
+    """The probe's matrices as ONE ``build_path_system_batch`` on the card,
+    equal to the sequential builds byte for byte; both timed in turns
+    (batch, sequential, sequential, batch), each from a cleared cache."""
+    from repro_torch.core import (
+        build_path_system,
+        build_path_system_batch,
+        random_permutation_traffic,
+    )
+    from repro_torch.core.routing import clear_routing_cache
+
+    comms = [random_permutation_traffic(top, seed=s)
+             for s in range(n_matrices)]
+
+    def batch():
+        return build_path_system_batch([top] * n_matrices, comms, k=k,
+                                       max_slack=3, device=run.dev).systems
+
+    def sequential():
+        return [build_path_system(top, c, k=k, max_slack=3, device=run.dev)
+                for c in comms]
+
+    secs = {"batch": [], "sequential": []}
+    built = {}
+    for tag in ("batch", "sequential", "sequential", "batch"):
+        clear_routing_cache()
+        fn = batch if tag == "batch" else sequential
+        if tag == "batch" and not secs["batch"]:
+            built[tag], t = run("build_batch", fn)
+        else:
+            run.sync()
+            t0 = time.perf_counter()
+            built[tag] = fn()
+            run.sync()
+            t = time.perf_counter() - t0
+        secs[tag].append(t)
+    for i, (a, b) in enumerate(zip(built["batch"], built["sequential"])):
+        same_system(a, b, f"batch build, matrix {i}")
+    return {"phase": "build_batch", "switches": top.n_switches,
+            "servers": int(top.n_servers), "matrices": n_matrices, "k": k,
+            "paths": [ps.n_paths for ps in built["batch"]],
+            "batch_seconds": secs["batch"],
+            "sequential_seconds": secs["sequential"],
+            "equal_to_sequential": True,
+            "launches": run.launches["build_batch"]}
+
+
+def ecmp_phase(run: PathRun, switches: int = 245, ports: int = 14,
+               servers: int = 686, ft_k: int = 14, n_ways: int = 64) -> dict:
+    """Table 1: ECMP against 8-shortest paths on a Jellyfish of the k = 14
+    fat-tree's equipment (ECMP on the card equal to the CPU build), and the
+    fat-tree's own ECMP groups against the analytic counts."""
+    import numpy as np
+
+    from repro_torch import capacity
+    from repro_torch.core import (
+        build_path_system,
+        ecmp_path_system,
+        fattree,
+        random_permutation_traffic,
+    )
+    from repro_torch.core.routing import clear_routing_cache
+    from repro_torch.sim import fattree_ecmp_check, path_diversity
+
+    top = capacity.jellyfish_same_equipment(switches, ports, servers, seed=0)
+    comm = random_permutation_traffic(top, seed=0)
+    clear_routing_cache()
+    eps, ecmp_s = run("ecmp", lambda: ecmp_path_system(
+        top, comm, n_ways=n_ways, device=run.dev))
+    clear_routing_cache()
+    same_system(eps, ecmp_path_system(top, comm, n_ways=n_ways, device="cpu",
+                                      cache=False), "ECMP on the card vs CPU")
+    ksp = build_path_system(top, comm, k=8, device=run.dev)
+
+    def diversity(ps):
+        d = path_diversity(ps)
+        per_link = d["paths_per_link_ranked"]
+        return {"links_total": d["links_total"],
+                "links_covered": d["links_covered"],
+                "coverage": d["coverage"],
+                "mean_paths_per_commodity": d["mean_paths_per_commodity"],
+                "paths_per_link_median": float(np.median(per_link)),
+                "links_with_at_most_2_paths": int((per_link <= 2).sum())}
+
+    ft = fattree(ft_k)
+    feps = ecmp_path_system(ft, random_permutation_traffic(ft, seed=0),
+                            n_ways=n_ways, device=run.dev)
+    chk = fattree_ecmp_check(feps, ft_k)
+    check(chk["inter_pod_groups_exact"] and chk["same_pod_groups_exact"],
+          f"fat-tree k={ft_k} ECMP groups {chk['inter_pod_groups']} / "
+          f"{chk['same_pod_groups']} differ from "
+          f"{chk['expected_inter_pod']} / {chk['expected_same_pod']}")
+    return {"phase": "ecmp", "switches": switches, "ports": ports,
+            "servers": servers, "n_ways": n_ways, "seconds": ecmp_s,
+            "equal_to_cpu": True, "ecmp": diversity(eps),
+            "ksp8": diversity(ksp),
+            "fattree": {"k": ft_k,
+                        "inter_pod_groups": chk["inter_pod_groups"].tolist(),
+                        "same_pod_groups": chk["same_pod_groups"].tolist(),
+                        "expected_inter_pod": chk["expected_inter_pod"]},
+            "launches": run.launches["ecmp"]}
+
+
+def mptcp_phase(top, run: PathRun, iters: int = 1500) -> dict:
+    """Fluid MPTCP on the probe's topology, dense (the congestion kernel)
+    against gather on the card, and Fig 8's claim at the CPU test's size."""
+    import numpy as np
+
+    from repro_torch.core import (
+        build_path_system,
+        jellyfish,
+        lp_concurrent_flow,
+        mptcp_throughput,
+        random_permutation_traffic,
+    )
+    from repro_torch.core.routing import clear_routing_cache
+
+    comm = random_permutation_traffic(top, seed=0)
+    clear_routing_cache()
+
+    def path():
+        ps = build_path_system(top, comm, k=8, device=run.dev)
+        return ps, mptcp_throughput(ps, iters=iters, backend="dense",
+                                    device=run.dev)
+
+    (ps, dense), dense_s = run("mptcp", path)
+    run.sync()
+    t0 = time.perf_counter()
+    gather = mptcp_throughput(ps, iters=iters, backend="gather",
+                              device=run.dev)
+    run.sync()
+    gather_s = time.perf_counter() - t0
+    gap = abs(dense.mean_throughput - gather.mean_throughput)
+    check(gap <= MPTCP_ATOL, f"MPTCP mean throughput dense "
+          f"{dense.mean_throughput} vs gather {gather.mean_throughput}")
+    check(bool(np.all(ps.loads(dense.rates) <= ps.capacities * (1 + 1e-5))),
+          "MPTCP rates overload a link")
+    # Fig 8 at tests/test_torch_mptcp.py's size
+    top8 = jellyfish(60, 10, 7, seed=5)
+    comm8 = random_permutation_traffic(top8, seed=6)
+    opt = lp_concurrent_flow(build_path_system(top8, comm8, k=24, max_slack=4,
+                                               device=run.dev))
+    mp8 = mptcp_throughput(build_path_system(top8, comm8, k=8,
+                                             device=run.dev),
+                           iters=iters, device=run.dev)
+    frac = mp8.mean_throughput / max(opt.normalized_throughput(), 1e-9)
+    check(frac >= 0.86, f"Fig 8: MPTCP / optimal = {frac} < 0.86")
+    return {"phase": "mptcp", "switches": top.n_switches,
+            "servers": int(top.n_servers), "paths": ps.n_paths,
+            "slots": ps.n_slots, "iters": iters,
+            "mean_throughput": dense.mean_throughput,
+            "jain": dense.jain_index,
+            "gather_mean_throughput": gather.mean_throughput,
+            "mean_gap": gap, "per_flow_max_gap": float(
+                np.abs(dense.per_flow - gather.per_flow).max()),
+            "seconds": dense_s, "gather_seconds": gather_s,
+            "fig8_fraction_of_optimal": frac,
+            "launches": run.launches["mptcp"]}
+
+
+def events_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn()`` between two CUDA events, after
+    one call to warm it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def sim_trace(prof, window_s: float, untraced_s: float) -> dict:
+    """From a device-activity trace of one ``simulate``: the congestion
+    kernel's device seconds (band and fold) and launches, every device operation's seconds
+    (runtime API entries excluded; one stream, so they do not overlap), and
+    their shares of the traced host window.  ``untraced_s`` is the same
+    run's seconds without the profiler, beside it for the tracer's cost."""
+    cong_s = busy_s = 0.0
+    cong_n = 0
+    for ev in prof.key_averages():
+        if ev.key.startswith("cuda"):
+            continue
+        busy_s += ev.device_time_total / 1e6
+        if "congestion_band_kernel" in ev.key:
+            cong_n += ev.count
+        if "congestion_band_kernel" in ev.key or (
+                "congestion_fold_kernel" in ev.key):
+            cong_s += ev.device_time_total / 1e6
+    if busy_s == 0.0:
+        return {"timer": "not measured: the profiler saw no device activity",
+                "window_s": window_s, "untraced_s": untraced_s}
+    return {"timer": "profiler", "window_s": window_s,
+            "untraced_s": untraced_s, "congestion_device_s": cong_s,
+            "congestion_launches": cong_n, "device_busy_s": busy_s,
+            "congestion_share_of_window": cong_s / window_s,
+            "congestion_share_of_untraced": cong_s / untraced_s,
+            "device_idle_share_of_window": 1.0 - busy_s / window_s}
+
+
+def sim_phase(run: PathRun, n_seeds: int = 8, n: int = 512, ports: int = 24,
+              net: int = 18, steps: int = 160, rate: float = 24.0,
+              size: float = 48.0, max_flows: int = 2048,
+              max_arrivals: int = 32, wf_iters: int = 10) -> dict:
+    """The reference's ``ecmp_sim_512`` row: ``n_seeds`` RRGs in ONE batched
+    ``simulate`` per policy (ECMP over ``ecmp_path_system(n_ways=64)``,
+    ``ksp_lc`` and ``mptcp`` over k = 8), with CT-sim, same-seed
+    determinism, and dense against gather checks."""
+    import numpy as np
+
+    from repro_torch.analysis.contracts import check_sim_state
+    from repro_torch.core import (
+        build_path_system_batch,
+        ecmp_path_system,
+        jellyfish,
+        random_permutation_traffic,
+    )
+    from repro_torch.core.flow import PathSystemBatch
+    from repro_torch.core.routing import clear_routing_cache
+    from repro_torch.sim import (
+        SimConfig,
+        fct_percentiles,
+        simulate,
+        steady_poisson,
+        steady_state_throughput,
+        waterfill_rates,
+    )
+
+    tops = [jellyfish(n, ports, net, seed=s) for s in range(n_seeds)]
+    comms = [random_permutation_traffic(t, seed=s) for s, t in enumerate(tops)]
+    wl = steady_poisson(steps, rate=rate, size=size)
+    cfg = SimConfig(max_flows=max_flows, max_arrivals=max_arrivals,
+                    wf_iters=wf_iters)
+    clear_routing_cache()
+    policies = {}
+    results = {}
+
+    def path():
+        t0 = time.perf_counter()
+        ecmp = PathSystemBatch.from_systems([
+            ecmp_path_system(t, c, n_ways=64, device=run.dev)
+            for t, c in zip(tops, comms)])
+        ksp = build_path_system_batch(tops, comms, k=8, device=run.dev)
+        build_s = time.perf_counter() - t0
+        for policy, batch in (("ecmp", ecmp), ("ksp_lc", ksp),
+                              ("mptcp", ksp)):
+            run.sync()
+            t0 = time.perf_counter()
+            results[policy] = simulate(batch, wl, policy=policy, config=cfg,
+                                       seed=0, device=run.dev)
+            run.sync()
+            policies[policy] = {"seconds": time.perf_counter() - t0}
+        return ecmp, ksp, build_s
+
+    (ecmp, ksp, build_s), path_s = run("sim", path)
+    for policy, res in results.items():
+        check_sim_state(res, name=f"sim {policy}")
+        thr = steady_state_throughput(res)
+        policies[policy].update({
+            "backend": res.backend,
+            "paths_per_instance": (ecmp if policy == "ecmp"
+                                   else ksp).n_paths.tolist(),
+            "steady_throughput": thr.tolist(),
+            "steady_throughput_mean": float(thr.mean()),
+            "offered_per_step": rate * size,
+            "admitted": int(res.admitted.sum()), "drops": int(res.drops.sum()),
+            "active_end_mean": float(res.active[-1].mean()),
+            "fct_p50_p99_mean": np.nanmean(
+                fct_percentiles(res, (0.5, 0.99)), axis=0).tolist(),
+            "step_ms": policies[policy]["seconds"] / steps * 1e3})
+    # same seed, same run: bit for bit.  On a card the rerun is traced
+    # (device activity only) for the congestion kernel's device seconds and
+    # every device operation's over the rerun's host window
+    trace = {}
+    if run.dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run.sync()
+            t0 = time.perf_counter()
+            again = simulate(ksp, wl, policy="ksp_lc", config=cfg, seed=0,
+                             device=run.dev)
+            run.sync()
+            window = time.perf_counter() - t0
+        trace = sim_trace(prof, window, policies["ksp_lc"]["seconds"])
+    else:
+        again = simulate(ksp, wl, policy="ksp_lc", config=cfg, seed=0,
+                         device=run.dev)
+    for f in ("throughput", "active", "fct_hist", "fct_sum", "fct_count",
+              "comm_delivered", "comm_offered", "util_sum", "drops",
+              "admitted", "inflight"):
+        check(np.array_equal(getattr(again, f), getattr(results["ksp_lc"], f)),
+              f"sim ksp_lc rerun with the same seed: {f} differs")
+    # the waterfill alone (no RNG) on the ksp batch: dense against gather
+    wf = {be: waterfill_rates(ksp, wf_iters=48, backend=be, device=run.dev)
+          for be in ("dense", "gather")}
+    for i, what in enumerate(("rates", "loads")):
+        got, want = wf["dense"][i], wf["gather"][i]
+        check(np.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f"waterfill {what}: dense vs gather beyond rtol 1e-5 (max "
+              f"{float(np.abs(got - want).max())})")
+    # the waterfill's loads half at this path's shape: the batched
+    # congestion kernel over the members' extents (zero prices), held
+    # against its plain version, and timed with the same CUDA events as the
+    # plain version, one library call and the gather tables
+    loads_t = {}
+    if run.dev.type == "cuda":
+        import torch
+
+        from repro_torch.core.flow import (
+            _stacked_incidence,
+            make_loads_fn_batch,
+        )
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.congestion import congestion_ref
+
+        pe = torch.as_tensor(ksp.path_edges, device=run.dev)
+        ext = (ksp.n_paths, [ps.n_slots for ps in ksp.systems])
+        rates = torch.rand((ksp.n_batch, ksp.p_max), device=run.dev)
+        for i, p in enumerate(ksp.n_paths.tolist()):
+            rates[i, p:] = 0.0   # as in the engine: padded rows ship nothing
+        b3 = _stacked_incidence(pe, ksp.s_max)
+        zeros = torch.zeros((ksp.n_batch, ksp.s_max), device=run.dev)
+        got = ops.congestion_loads(b3, rates, ext)
+        want = congestion_ref(b3, rates, zeros, ext)[0]
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        loads_t["max_abs_err"] = float((got - want).abs().max())
+        gather = make_loads_fn_batch(pe, ksp.s_max, ksp.n_batch, "gather",
+                                     ksp.slot_gather, extents=ext)
+        for name, fn, reps in (
+                ("dense", lambda: ops.congestion_loads(b3, rates, ext), 20),
+                ("plain", lambda: congestion_ref(b3, rates, zeros, ext), 10),
+                # one library call over the whole padded stack (TF32 off)
+                ("library_bmm", lambda: torch.bmm(rates[:, None, :], b3), 10),
+                ("gather", lambda: gather(rates), 20)):
+            loads_t[name] = events_ms(fn, reps)
+        cells = sum(ps.n_paths * ps.n_slots for ps in ksp.systems)
+        edges = sum(ps.n_paths + 2 * ps.n_slots for ps in ksp.systems)
+        # B read once, rates read, loads (and the zero costs) written; one
+        # FMA per entry of B for the loads
+        b_ms, b_by = bound_ms(4.0 * (cells + edges), 1.0 * cells)
+        loads_t.update({"bound_ms": b_ms, "bound_by": b_by, "timer": "events",
+                        "tf32": torch.backends.cuda.matmul.allow_tf32,
+                        "shape": [ksp.n_batch, ksp.p_max, ksp.s_max]})
+        del pe, rates, b3, zeros, got, want, gather
+    # ECMP under gather: the same flows, throughput to the stated tolerance
+    run.sync()
+    t0 = time.perf_counter()
+    eg = simulate(ecmp, wl, policy="ecmp", config=cfg, seed=0,
+                  backend="gather", device=run.dev)
+    run.sync()
+    eg_s = time.perf_counter() - t0
+    td = steady_state_throughput(results["ecmp"])
+    tg = steady_state_throughput(eg)
+    rel = float(np.max(np.abs(td - tg) / np.maximum(np.abs(tg), 1e-12)))
+    check(rel <= SIM_ECMP_RTOL, f"sim ecmp steady throughput dense vs "
+          f"gather differs by {rel} (rtol {SIM_ECMP_RTOL})")
+    return {"phase": "sim", "n": n, "ports": ports, "net_degree": net,
+            "seeds": n_seeds, "steps": steps, "rate": rate, "size": size,
+            "max_flows": max_flows, "max_arrivals": max_arrivals,
+            "wf_iters": wf_iters, "build_seconds": build_s,
+            "seconds": path_s, "policies": policies,
+            "deterministic": True,
+            "waterfill_dense_vs_gather_max": [
+                float(np.abs(wf["dense"][i] - wf["gather"][i]).max())
+                for i in range(2)],
+            "ecmp_gather_steady_throughput_mean": float(tg.mean()),
+            "ecmp_dense_vs_gather_rel": rel, "ecmp_gather_seconds": eg_s,
+            "ecmp_gather_step_ms": eg_s / steps * 1e3,
+            "loads_ms_per_call": loads_t, "ksp_lc_rerun_trace": trace,
+            "launches": run.launches["sim"]}
+
+
+def bisection_k(elapsed: float, probes: int, probe_s: float) -> tuple:
+    """The fat-tree k of a bisection that takes about ``probes`` probes of
+    ``probe_s`` seconds each: K_FULL while that fits what is left of the
+    time budget, else 16; and why."""
+    need = elapsed + probes * probe_s
+    k = K_FULL if need < TIME_BUDGET_S else 16
+    return k, (f"{elapsed:.1f} s elapsed + {probes} x probe {probe_s:.2f} s "
+               f"{'<' if k == K_FULL else '>='} budget {TIME_BUDGET_S:.0f} s")
+
+
+def pipeline_bisection(run: PathRun, k: int, best_seq: int) -> dict:
+    """The wave bisection (``wave_levels=2``, its build units through
+    ``stream_builds``) with the build pipeline on and off; both must give
+    the sequential search's server count.  The batched solve is pinned to
+    ``dense`` so every wave takes the backend the sequential probes took."""
+    from repro_torch import capacity, obs
+    from repro_torch.core import fattree_equipment, set_build_pipeline
+    from repro_torch.core.routing import clear_routing_cache
+
+    eq = fattree_equipment(k)
+    lo, hi = eq["servers"] // 2, 2 * eq["servers"]
+    out = {"phase": "bisection_pipeline", "k": k, "wave_levels": 2}
+    prev = set_build_pipeline(True)
+    try:
+        for flag, tag in ((True, "on"), (False, "off")):
+            set_build_pipeline(flag)
+            clear_routing_cache()
+            c0 = {c: obs.counter(f"pipeline/{c}").to_value()
+                  for c in ("stall_s", "overlap_s", "builds")}
+            best, secs = run(f"bisection_wave_{tag}", lambda: (
+                capacity.max_servers_at_full_capacity(
+                    eq["switches"], eq["ports_per_switch"], lo=lo, hi=hi,
+                    seeds=(0,), wave_levels=2, method="mw",
+                    mw_backend="dense", device=run.dev)))
+            out[tag] = {"servers": best, "seconds": secs,
+                        **{f"pipeline/{c}": obs.counter(
+                            f"pipeline/{c}").to_value() - v
+                           for c, v in c0.items()},
+                        "launches": run.launches[f"bisection_wave_{tag}"]}
+    finally:
+        set_build_pipeline(prev)
+    check(out["on"]["servers"] == out["off"]["servers"] == best_seq,
+          f"wave bisection with the pipeline on {out['on']['servers']} / off "
+          f"{out['off']['servers']} != sequential {best_seq}")
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -195,6 +718,7 @@ def main() -> None:
         permutation_commodities,
         random_permutation_traffic,
         random_server_permutation,
+        set_build_pipeline,
         update_path_system,
     )
     from repro_torch.core import routing
@@ -892,10 +1416,49 @@ def main() -> None:
           "ports": EXP_PORTS, "net_degree": EXP_NET, "k": 8,
           "final_switches": cur.n_switches, "seconds": exp_s,
           "steps": steps, "launches": launches["expansion"]})
+    del ps, ps_new, full, prev, warm, cold
+    torch.cuda.empty_cache()
+
+    # ---- 4''. the §5 routing paths ----------------------------------------- #
+    run = PathRun(dev, launches)
+    out = build_batch_phase(top, run)
+    # the probe with the build pipeline on (one batch build) and off
+    # (sequential lazy builds), in turns: on, off, off, on; each must give
+    # the probe's verdict and alphas
+    probe_turns = {"on": [], "off": []}
+    prev_flag = set_build_pipeline(True)
+    try:
+        for tag in ("on", "off", "off", "on"):
+            set_build_pipeline(tag == "on")
+            clear_routing_cache()
+            path = "probe_sequential" if tag == "off" else "probe_batched"
+            got, secs = run(path, lambda: capacity.probe_full_capacity(
+                top, n_matrices=3, k=8, iters=500, method="auto",
+                device=dev))
+            check(got.verdict == probe.verdict
+                  and [x.alpha for x in got.mw_results]
+                  == [x.alpha for x in res],
+                  f"the probe with the build pipeline {tag} differs from "
+                  "the probe phase's")
+            probe_turns[tag].append(secs)
+    finally:
+        set_build_pipeline(prev_flag)
+    out.update({"probe_seconds_pipeline_on": probe_turns["on"],
+                "probe_seconds_pipeline_off": probe_turns["off"],
+                "probe_verdict": probe.verdict,
+                "probe_sequential_launches": launches["probe_sequential"]})
+    emit(out)
+    emit(ecmp_phase(run))
+    emit(mptcp_phase(top, run))
+    torch.cuda.empty_cache()
+    emit(sim_phase(run))
+    torch.cuda.empty_cache()
 
     # ---- 5. the bisection -------------------------------------------------- #
-    elapsed = time.perf_counter() - t_start
-    k_bis = K_FULL if elapsed + 16 * probe_s < TIME_BUDGET_S else 16
+    # the sequential search (~16 probes) runs at k=24 while it fits what is
+    # left of the budget; the wave pair after it (~2 x 20 probes' builds)
+    # drops to k=16 first when the budget is short
+    k_bis, why_bis = bisection_k(time.perf_counter() - t_start, 16, probe_s)
     eq_b = fattree_equipment(k_bis)
     lo, hi = eq_b["servers"] // 2, 2 * eq_b["servers"]
     clear_routing_cache()
@@ -923,7 +1486,20 @@ def main() -> None:
           "servers": best, "fattree_servers": eq_b["servers"],
           "ratio": best / eq_b["servers"], "seconds": bis_s,
           "launches": launches["bisection"], "k6_servers_gpu": small_gpu,
-          "k6_servers_cpu": small_cpu})
+          "k6_servers_cpu": small_cpu, "k_reason": why_bis})
+    torch.cuda.empty_cache()
+    k_wave, why_wave = bisection_k(time.perf_counter() - t_start, 40, probe_s)
+    if k_wave == k_bis:
+        best_wave = best
+    else:
+        # the wave pair's own sequential count at its smaller equipment
+        eq_w = fattree_equipment(k_wave)
+        best_wave = capacity.max_servers_at_full_capacity(
+            eq_w["switches"], eq_w["ports_per_switch"],
+            lo=eq_w["servers"] // 2, hi=2 * eq_w["servers"], seeds=(0,),
+            method="mw", device=dev)
+    emit({**pipeline_bisection(PathRun(dev, launches), k_wave, best_wave),
+          "sequential_servers": best_wave, "k_reason": why_wave})
 
     # ---- 6. kernels -------------------------------------------------------- #
     replaces = {
@@ -960,6 +1536,20 @@ def main() -> None:
                       "matmul"),
         "bisection": ("congestion_batch", apsp_kernel(eq_b["switches"]),
                       "admission"),
+        "build_batch": (apsp_kernel(n_sw), "admission"),
+        "probe_sequential": ("congestion_batch", apsp_kernel(n_sw),
+                             "admission"),
+        "probe_batched": ("congestion_batch", apsp_kernel(n_sw),
+                          "admission"),
+        "ecmp": (apsp_kernel(245), "admission"),
+        "mptcp": ("congestion", apsp_kernel(n_sw), "admission"),
+        "sim": ("congestion_batch", apsp_kernel(512), "admission"),
+        "bisection_wave_on": ("congestion_batch",
+                              apsp_kernel(fattree_equipment(k_wave)[
+                                  "switches"]), "admission"),
+        "bisection_wave_off": ("congestion_batch",
+                               apsp_kernel(fattree_equipment(k_wave)[
+                                   "switches"]), "admission"),
     }
     for path, names in expected.items():
         for name in names:

@@ -2,18 +2,22 @@
 
 from .contracts import (
     ContractViolation,
+    check_built_batch,
     check_hop_matrix,
     check_path_system,
     check_path_system_batch,
+    check_sim_state,
     checks_enabled,
     set_check_enabled,
 )
 
 __all__ = [
     "ContractViolation",
+    "check_built_batch",
     "check_hop_matrix",
     "check_path_system",
     "check_path_system_batch",
+    "check_sim_state",
     "checks_enabled",
     "set_check_enabled",
 ]

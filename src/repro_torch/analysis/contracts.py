@@ -13,10 +13,10 @@ This module checks them *at the boundaries where the structures are made*
 behind ``REPRO_CHECK=1`` (see ``repro_torch.env``; the tier-1 test suite
 turns it on by default via ``conftest.py``).
 
-Port copy of the part of ``repro/analysis/contracts.py`` that the capacity
-path calls (numpy only, unchanged): the path-system, hop-matrix and batch
-checks.  The delta, built-batch and simulator checks wait for the modules
-they guard.
+Port copy of the part of ``repro/analysis/contracts.py`` that the ported
+paths call (numpy only, unchanged): the path-system, hop-matrix, batch,
+built-batch (CT-build) and simulator-state (CT-sim) checks.  The carry
+migration check waits for the live-event module it guards.
 
 Validators are pure numpy and duck-typed over the dataclasses, so this
 module imports none of the solver modules (they import *us* at module
@@ -33,9 +33,11 @@ from .. import env
 
 __all__ = [
     "ContractViolation",
+    "check_built_batch",
     "check_hop_matrix",
     "check_path_system",
     "check_path_system_batch",
+    "check_sim_state",
     "checks_enabled",
     "set_check_enabled",
 ]
@@ -450,3 +452,176 @@ def check_path_system_batch(batch, *, name: str = "path_system_batch",
                 _fail(name, f"owner_gather[{i}, {int(k_idx[j])}, "
                             f"{int(d_idx[j])}] points at a row of commodity "
                             f"{int(own[i, tabs[i, k_idx[j], d_idx[j]]])}")
+
+
+def check_built_batch(batch, tops, *, name: str = "build_path_system_batch",
+                      max_instances: int = 16) -> None:
+    """Validate a directly-constructed batch at the batch-build boundary.
+
+    ``build_path_system_batch`` composes B instances into one enumeration
+    pass and assembles the envelope straight from the streamed per-instance
+    systems, so the batch-level padding/gather discipline
+    (``check_path_system_batch``) AND each member system's own invariants
+    — including the canonical (length, lex) tie order that the
+    batch == sequential bit-exactness contract (CT-build) rests on — are
+    established *here*, not at B separate ``build_path_system`` exits.
+    Per-instance decode work is bounded by ``max_instances`` exactly as in
+    ``check_path_system_batch``.
+    """
+    check_path_system_batch(batch, name=name, max_instances=max_instances)
+    for i, (ps, top) in enumerate(zip(batch.systems[:max_instances], tops)):
+        check_path_system(ps, top, name=f"{name}[instance {i}]")
+
+
+# --------------------------------------------------------------------------- #
+# SimResult
+# --------------------------------------------------------------------------- #
+
+
+def check_sim_state(res, *, name: str = "sim_result") -> None:
+    """Validate a ``SimResult``'s accounting invariants.
+
+    Completion counts must reconcile with the FCT histogram, every FCT is
+    at least one step, per-commodity delivered volume never exceeds
+    admitted volume, per-step throughput totals match per-commodity
+    delivered totals (float32-accumulation tolerance), and padded slots
+    accumulate exactly zero utilization.
+    """
+    thr = np.asarray(res.throughput)
+    act = np.asarray(res.active)
+    T = int(res.n_steps)
+    if thr.ndim != 2 or thr.shape[0] != T or act.shape != thr.shape:
+        _fail(name, f"throughput/active must be (n_steps={T}, B); got "
+                    f"{thr.shape} / {act.shape}")
+    B = thr.shape[1]
+    if not (res.dt > 0):
+        _fail(name, f"dt={res.dt} must be > 0")
+    if np.any(thr < 0) or np.any(~np.isfinite(thr)):
+        t, b = map(int, np.argwhere((thr < 0) | ~np.isfinite(thr))[0])
+        _fail(name, f"throughput[{t}, {b}]={thr[t, b]} must be finite "
+                    ">= 0")
+    if np.any(act < 0):
+        t, b = map(int, np.argwhere(act < 0)[0])
+        _fail(name, f"active[{t}, {b}]={act[t, b]} must be >= 0")
+
+    hist = np.asarray(res.fct_hist)
+    cnt = np.asarray(res.fct_count)
+    fct = np.asarray(res.fct_sum)
+    if hist.shape[0] != B or cnt.shape != (B,) or fct.shape != (B,):
+        _fail(name, f"fct_hist/fct_count/fct_sum batch dims must be B={B}; "
+                    f"got {hist.shape} / {cnt.shape} / {fct.shape}")
+    hsum = hist.sum(axis=1, dtype=np.float64)
+    if np.any(np.abs(hsum - cnt) > 0.5):
+        b = int(np.argmax(np.abs(hsum - cnt) > 0.5))
+        _fail(name, f"fct_hist[{b}] sums to {hsum[b]} but fct_count[{b}]="
+                    f"{cnt[b]} (every completion must land in exactly one "
+                    "bin)")
+    if np.any(cnt < 0) or np.any(~np.isfinite(fct)) or np.any(fct < 0):
+        b = int(np.argmax((cnt < 0) | ~np.isfinite(fct) | (fct < 0)))
+        _fail(name, f"fct_count[{b}]={cnt[b]} / fct_sum[{b}]={fct[b]} must "
+                    "be finite >= 0")
+    min_sum = res.dt * cnt.astype(np.float64)
+    if np.any(fct < min_sum * (1.0 - 1e-5) - 1e-6):
+        b = int(np.argmax(fct < min_sum * (1.0 - 1e-5) - 1e-6))
+        _fail(name, f"fct_sum[{b}]={fct[b]} < dt * fct_count[{b}]="
+                    f"{min_sum[b]}: a flow cannot complete in under one "
+                    "step")
+
+    deliv = np.asarray(res.comm_delivered)
+    off = np.asarray(res.comm_offered)
+    if deliv.shape != off.shape or deliv.shape[0] != B:
+        _fail(name, f"comm_delivered/comm_offered must be (B={B}, K+1); "
+                    f"got {deliv.shape} / {off.shape}")
+    if np.any(deliv < 0) or np.any(off < 0) or \
+            np.any(~np.isfinite(deliv)) or np.any(~np.isfinite(off)):
+        idx = tuple(map(int, np.argwhere(
+            (deliv < 0) | (off < 0) | ~np.isfinite(deliv)
+            | ~np.isfinite(off))[0]))
+        _fail(name, f"commodity volumes at {idx} must be finite >= 0")
+    slack = 1e-3 * np.maximum(off, 1.0)
+    if np.any(deliv > off + slack):
+        i, k = map(int, np.argwhere(deliv > off + slack)[0])
+        _fail(name, f"comm_delivered[{i}, {k}]={deliv[i, k]} exceeds "
+                    f"comm_offered[{i}, {k}]={off[i, k]}: the sim delivered "
+                    "volume that was never admitted")
+
+    tot_thr = thr.sum(axis=0, dtype=np.float64)
+    tot_del = deliv.sum(axis=1, dtype=np.float64)
+    budget = 1e-3 * np.maximum(tot_del, 1.0)
+    if np.any(np.abs(tot_thr - tot_del) > budget):
+        b = int(np.argmax(np.abs(tot_thr - tot_del) > budget))
+        _fail(name, f"instance {b}: per-step throughput total "
+                    f"{tot_thr[b]} != per-commodity delivered total "
+                    f"{tot_del[b]} (volume accounting broke)")
+
+    drops = np.asarray(res.drops)
+    admitted = np.asarray(res.admitted)
+    if drops.shape != (B,) or admitted.shape != (B,):
+        _fail(name, f"drops/admitted must be (B={B},); got {drops.shape} / "
+                    f"{admitted.shape}")
+    if np.any(drops < 0) or np.any(admitted < 0):
+        b = int(np.argmax((drops < 0) | (admitted < 0)))
+        _fail(name, f"drops[{b}]={drops[b]} / admitted[{b}]={admitted[b]} "
+                    "must be >= 0")
+    if np.any(cnt > admitted):
+        b = int(np.argmax(cnt > admitted))
+        _fail(name, f"fct_count[{b}]={cnt[b]} completed flows > "
+                    f"admitted[{b}]={admitted[b]}")
+
+    util = np.asarray(res.util_sum)
+    sval = np.asarray(res.slot_valid)
+    if util.shape != sval.shape:
+        _fail(name, f"util_sum {util.shape} / slot_valid {sval.shape} "
+                    "shape mismatch")
+    if np.any(util[~sval] != 0.0):
+        idx = tuple(map(int, np.argwhere((util != 0.0) & ~sval)[0]))
+        _fail(name, f"padded slot {idx} accumulated utilization "
+                    f"{util[idx]} != 0 (inv_cap masking broke)")
+    if np.any(util < -1e-6) or np.any(~np.isfinite(util)):
+        idx = tuple(map(int, np.argwhere(
+            (util < -1e-6) | ~np.isfinite(util))[0]))
+        _fail(name, f"util_sum at {idx} must be finite >= 0")
+
+    # ---- blackhole + volume conservation (guarded with getattr so
+    # hand-built fixtures predating the event engine stay valid) ----------- #
+    bh = getattr(res, "blackholed", None)
+    bh_tot = getattr(res, "blackholed_total", None)
+    inflight = getattr(res, "inflight", None)
+    if bh is None or bh_tot is None or inflight is None:
+        return
+    bh = np.asarray(bh)
+    bh_tot = np.asarray(bh_tot)
+    inflight = np.asarray(inflight)
+    if bh.shape != thr.shape or bh_tot.shape != (B,) or \
+            inflight.shape != (B,):
+        _fail(name, f"blackholed must be {thr.shape}, blackholed_total/"
+                    f"inflight (B={B},); got {bh.shape} / {bh_tot.shape} / "
+                    f"{inflight.shape}")
+    if np.any(bh < 0) or np.any(~np.isfinite(bh)):
+        t, b = map(int, np.argwhere((bh < 0) | ~np.isfinite(bh))[0])
+        _fail(name, f"blackholed[{t}, {b}]={bh[t, b]} must be finite >= 0")
+    if np.any(bh_tot < 0) or np.any(~np.isfinite(bh_tot)) or \
+            np.any(inflight < 0) or np.any(~np.isfinite(inflight)):
+        b = int(np.argmax((bh_tot < 0) | ~np.isfinite(bh_tot)
+                          | (inflight < 0) | ~np.isfinite(inflight)))
+        _fail(name, f"blackholed_total[{b}]={bh_tot[b]} / inflight[{b}]="
+                    f"{inflight[b]} must be finite >= 0")
+    # per-step blackhole totals never exceed the running total (the total
+    # additionally counts volume killed outright at event boundaries)
+    step_bh = bh.sum(axis=0, dtype=np.float64)
+    bh_budget = 1e-3 * np.maximum(bh_tot, 1.0)
+    if np.any(step_bh > bh_tot + bh_budget):
+        b = int(np.argmax(step_bh > bh_tot + bh_budget))
+        _fail(name, f"instance {b}: per-step blackholed sum {step_bh[b]} "
+                    f"exceeds blackholed_total {bh_tot[b]}")
+    # conservation: every admitted byte is delivered, still in flight, or
+    # blackholed.  (drops count arrivals never admitted, so they carry no
+    # volume in this ledger.)
+    tot_off = off.sum(axis=1, dtype=np.float64)
+    lhs = tot_del + bh_tot.astype(np.float64) + inflight.astype(np.float64)
+    budget = 1e-3 * np.maximum(tot_off, 1.0)
+    if np.any(np.abs(tot_off - lhs) > budget):
+        b = int(np.argmax(np.abs(tot_off - lhs) > budget))
+        _fail(name, f"instance {b}: offered {tot_off[b]} != delivered "
+                    f"{tot_del[b]} + blackholed {bh_tot[b]} + in-flight "
+                    f"{inflight[b]} (volume conservation broke)")

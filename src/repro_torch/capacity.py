@@ -7,14 +7,19 @@ Port-side copies of ``benchmarks/common.py``'s capacity helpers:
 Jellyfish built from given switching equipment carry while every random
 permutation of server traffic still routes at full rate (alpha >= 1)?
 
-Each probe builds its path systems one after another
-(``build_path_system``; the reference's pipelined batch builder is not
-ported, and its output equals sequential builds), verdicts LP-sized
+With the build pipeline on (``REPRO_BUILD_PIPELINE``, the default, as in
+the reference) each probe builds its traffic matrices as ONE
+``build_path_system_batch`` on ``device``; off, it builds them one after
+another, lazily, so an LP rejection stops the builds.  Both give the same
+path systems byte for byte (CT-build).  The probe verdicts LP-sized
 matrices with the exact LP and solves the MW-sized ones in one
 ``mw_concurrent_flow_batch`` call on ``device``.  ``wave_levels > 1``
 probes speculatively as in the reference: every candidate the next
 ``wave_levels`` bisection steps could ask about goes into one batched
-solve, and the server count equals the sequential search's.
+solve, its build units streamed through ``core.buildpipe.stream_builds``
+(the next unit builds on a worker thread, on a CUDA stream of its own,
+while the consumer verdicts this one), and the server count equals the
+sequential search's.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from . import env
 from .core import (
     build_path_system,
+    build_path_system_batch,
     jellyfish_heterogeneous,
     lp_concurrent_flow,
     max_feasible,
@@ -35,6 +41,7 @@ from .core import (
     random_permutation_traffic,
     speculative_max_feasible,
 )
+from .core.buildpipe import pipeline_enabled, stream_builds
 from .core.flow import LP_PATH_LIMIT
 
 __all__ = [
@@ -112,8 +119,20 @@ def jellyfish_same_equipment(n_switches: int, ports: int, n_servers: int, seed=0
 
 
 def _probe_systems(top, n_matrices, k, device):
-    """One probe's path systems, traffic seeds 0..n_matrices-1, slack=3,
-    built lazily so an LP rejection stops the builds."""
+    """One probe's path systems, traffic seeds 0..n_matrices-1, slack=3.
+
+    With the build pipeline on, all of them build as ONE
+    ``build_path_system_batch`` (one combined frontier pass instead of
+    ``n_matrices``); off, they build lazily one after another, so an LP
+    rejection stops the builds.  The systems are byte-identical either way
+    (CT-build), so every verdict is too.
+    """
+    if pipeline_enabled():
+        comms = [random_permutation_traffic(top, seed=s)
+                 for s in range(n_matrices)]
+        batch = build_path_system_batch([top] * n_matrices, comms, k=k,
+                                        max_slack=3, device=device)
+        return list(batch.systems)
     return (
         build_path_system(
             top, random_permutation_traffic(top, seed=s), k=k, max_slack=3,
@@ -206,19 +225,30 @@ def max_servers_at_full_capacity(
     def ok_batch(candidates):
         verdicts = [True] * len(candidates)
         mw_systems, owner = [], []
-        for ci, m in enumerate(candidates):
-            for seed in seeds:
-                if not verdicts[ci]:
-                    break  # an earlier LP matrix rejected this candidate
+        # one build unit per (candidate, seed); with the pipeline on,
+        # stream_builds builds unit i+1 on its worker while this thread
+        # verdicts unit i.  Results arrive in submission order, so the
+        # verdict fold below is the sequential loop.
+        tasks = [(ci, m, seed) for ci, m in enumerate(candidates)
+                 for seed in seeds]
+
+        def build_thunk(m, seed):
+            def thunk():
                 top = jellyfish_same_equipment(n_switches, ports, m,
                                                seed=seed)
-                lp_ok, mws = _probe_verdict(
-                    _probe_systems(top, n_matrices, k, device), tol, method
-                )
-                mw_systems.extend(mws)
-                owner.extend([ci] * len(mws))
-                if not lp_ok:
-                    verdicts[ci] = False
+                return _probe_systems(top, n_matrices, k, device)
+            return thunk
+
+        stream = stream_builds(
+            (build_thunk(m, seed) for _, m, seed in tasks), device=device)
+        for (ci, m, seed), systems in zip(tasks, stream):
+            if not verdicts[ci]:
+                continue  # an earlier LP matrix rejected this candidate
+            lp_ok, mws = _probe_verdict(systems, tol, method)
+            mw_systems.extend(mws)
+            owner.extend([ci] * len(mws))
+            if not lp_ok:
+                verdicts[ci] = False
         # LP-rejected candidates' MW systems are dead weight in the batch
         keep = [i for i, ci in enumerate(owner) if verdicts[ci]]
         mw_systems = [mw_systems[i] for i in keep]

@@ -5,7 +5,7 @@ in a model: the state a solve runs on.  These helpers build the port's
 objects from the reference's, handed over as dicts of numpy arrays (for
 example ``dataclasses.asdict(ps)`` of a ``repro`` ``PathSystem``), so both
 solvers can be fed the identical state without the port importing
-``repro``.
+``repro``.  A simulator ``Workload`` is handed over the same way.
 """
 
 from __future__ import annotations
@@ -17,8 +17,10 @@ import numpy as np
 
 from .core.routing import PathSystem
 from .core.topology import Topology
+from .sim.workloads import Workload
 
-__all__ = ["path_system_from_numpy", "topology_from_numpy"]
+__all__ = ["path_system_from_numpy", "topology_from_numpy",
+           "workload_from_numpy"]
 
 
 def _copy(v):
@@ -49,3 +51,9 @@ def path_system_from_numpy(fields: dict) -> PathSystem:
     """A port ``PathSystem`` from the fields of a reference one; arrays are
     copied, so the two objects share no memory."""
     return _build(PathSystem, fields)
+
+
+def workload_from_numpy(fields: dict) -> Workload:
+    """A port sim ``Workload`` from the fields of a reference one (``rate``,
+    the size mixture and the optional demand epochs); arrays are copied."""
+    return _build(Workload, fields)

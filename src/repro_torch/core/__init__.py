@@ -1,14 +1,15 @@
 """The port's core library: the Jellyfish paper's computations on torch.
 
 Public API re-exports of the ported modules: topology and the Jellyfish,
-fat-tree and leaf-spine Clos families, traffic, routing (with delta
-re-routing after a topology change), flow, bisection, metrics, incremental
-expansion and failures, and the LEGUP expansion-economics arcs.  Not ported
-yet: MPTCP, the batch path-system builder (``build_path_system_batch``,
-``buildpipe``), ECMP path systems, and the other topology families
-(small-world, degree-diameter, placement).
+fat-tree and leaf-spine Clos families, traffic, routing (with the
+cross-instance batch build, ECMP path systems and delta re-routing after
+a topology change), the build pipeline, flow, fluid MPTCP, bisection,
+metrics, incremental expansion and failures, and the LEGUP
+expansion-economics arcs.  Not ported yet: ``lp_edge_concurrent_flow`` and
+the other topology families (small-world, degree-diameter, placement).
 """
 
+from .buildpipe import pipeline_enabled, set_build_pipeline, stream_builds
 from .bisection import (
     bollobas_bound,
     kernighan_lin_bisection,
@@ -42,9 +43,12 @@ from .metrics import (
     path_stats,
     PathStats,
 )
+from .mptcp import MptcpResult, mptcp_throughput
 from .routing import (
     PathSystem,
     build_path_system,
+    build_path_system_batch,
+    ecmp_path_system,
     k_shortest_paths,
     set_admission_backend,
     set_apsp_backend,
@@ -82,9 +86,12 @@ __all__ = [
     "Commodities", "random_permutation_traffic", "all_to_all_traffic",
     "random_server_permutation", "extend_server_permutation",
     "permutation_commodities", "union_commodities",
-    "PathSystem", "build_path_system", "k_shortest_paths",
+    "PathSystem", "build_path_system", "build_path_system_batch",
+    "ecmp_path_system", "k_shortest_paths",
     "update_path_system", "set_apsp_backend", "set_admission_backend",
+    "pipeline_enabled", "set_build_pipeline", "stream_builds",
     "FlowResult", "PathSystemBatch", "mw_concurrent_flow",
     "mw_concurrent_flow_batch", "lp_concurrent_flow", "throughput",
+    "MptcpResult", "mptcp_throughput",
     "fail_links", "fail_switches",
 ]

@@ -76,6 +76,7 @@ __all__ = [
     "dense_incidence",
     "make_congestion_fn",
     "make_congestion_fn_batch",
+    "make_loads_fn_batch",
     "mw_concurrent_flow",
     "mw_concurrent_flow_batch",
     "lp_concurrent_flow",
@@ -202,6 +203,16 @@ def dense_incidence(path_edges: torch.Tensor, n_slots: int) -> torch.Tensor:
     return b
 
 
+def _stacked_incidence(path_edges: torch.Tensor,
+                       n_slots: int) -> torch.Tensor:
+    """(Bt, P, S) {0,1} incidences of a (Bt, P, L) stack of path tables."""
+    b3 = torch.zeros(path_edges.shape[:2] + (n_slots,), dtype=_F32,
+                     device=path_edges.device)
+    for i in range(path_edges.shape[0]):
+        _fill_incidence(b3[i], path_edges[i], n_slots)
+    return b3
+
+
 def _fill_incidence(out: torch.Tensor, path_edges: torch.Tensor,
                     n_slots: int) -> None:
     rows = torch.arange(path_edges.shape[0], device=path_edges.device)
@@ -317,15 +328,71 @@ def make_congestion_fn_batch(
             return rates @ b, prices @ b.T
 
         return fused
-    Bt, P, _ = path_edges.shape
-    b3 = torch.zeros((Bt, P, n_slots), dtype=_F32, device=dev)
-    for i in range(Bt):
-        _fill_incidence(b3[i], path_edges[i], n_slots)
+    b3 = _stacked_incidence(path_edges, n_slots)
 
     def fused(rates, prices):
         return ops.congestion(b3, rates, prices, extents)
 
     return fused
+
+
+def make_loads_fn_batch(
+    path_edges: torch.Tensor,
+    n_slots: int,
+    n_batch: int,
+    backend: str,
+    slot_gather: np.ndarray | None = None,
+    extents: tuple | None = None,
+):
+    """Loads-only ``B^T r`` batched closure — the congestion backends' load
+    half, for inner loops that never consume path costs.
+
+    The flow-level simulator's waterfilling (``repro_torch.sim.engine``)
+    needs per-slot loads and flow counts but no ``B w`` product.  The
+    closure maps (Bt, P) rates to (Bt, S) loads:
+
+    * ``gather`` — the fan-in tables summed left to right
+      (``_ordered_fan_in_sum``), the reference's scatter-add order, equal
+      bit for bit to ``make_congestion_fn_batch``'s loads half;
+    * ``dense`` — the stacked (Bt, P, S) incidence through
+      ``ops.congestion_loads`` (the congestion kernel on CUDA, zero
+      prices), over each member's real ``extents=(n_paths, n_slots)`` when
+      given; a shared (P, L) table is one plain matrix product.
+    """
+    shared = path_edges.ndim == 2
+    dev = path_edges.device
+    if backend == "gather":
+        if slot_gather is None:
+            raise ValueError(
+                "gather backend needs the PathSystemBatch fan-in tables"
+            )
+        L = path_edges.shape[-1]
+        tab = _columns(slot_gather, dev)
+        pad = torch.zeros((n_batch, 1), dtype=_F32, device=dev)
+
+        def loads_fn(rates):
+            fr = torch.cat([rates.repeat_interleave(L, dim=1), pad], dim=1)
+            loads = _ordered_fan_in_sum(fr, tab)
+            if loads is None:
+                loads = torch.zeros((n_batch, n_slots), dtype=_F32, device=dev)
+            return loads
+
+        return loads_fn
+    if backend != "dense":
+        raise ValueError(f"unknown congestion backend: {backend!r}")
+    if shared:
+        b = dense_incidence(path_edges, n_slots)
+
+        def loads_fn(rates):
+            return rates @ b
+
+        return loads_fn
+    b3 = _stacked_incidence(path_edges, n_slots)
+
+    def loads_fn(rates):
+        return ops.congestion_loads(b3, rates, extents)
+
+    return loads_fn
 
 
 def _resolve_backend(

@@ -36,9 +36,12 @@ Delta routing (``update_path_system``, with ``_repair_dist``,
 failure and gives exactly what a rebuild would; its APSP and its
 re-enumeration run on the call's ``device`` like a build's.
 
-Not ported yet: ``build_path_system_batch`` with ``_BlockDist`` and
-``core/buildpipe.py`` (whose output equals sequential builds),
-``ecmp_path_system`` and the historical DFS.
+``build_path_system_batch`` builds B instances as ONE cross-instance
+enumeration over a block-diagonal composition (``_BlockDist``), with each
+group's APSP on the call's ``device``; its systems equal B sequential
+builds byte for byte (CT-build).  ``ecmp_path_system`` is the equal-cost
+(``max_slack=0``) build of the paper's Table 1, and
+``_k_shortest_paths_dfs`` the historical per-pair DFS kept as a baseline.
 """
 
 from __future__ import annotations
@@ -52,7 +55,11 @@ import torch
 
 from .. import env
 from .. import obs
-from ..analysis.contracts import check_path_system, checks_enabled
+from ..analysis.contracts import (
+    check_built_batch,
+    check_path_system,
+    checks_enabled,
+)
 from ..device import is_cuda, resolve
 from .metrics import (
     INT16_INF,
@@ -70,6 +77,8 @@ __all__ = [
     "PathSystem",
     "k_shortest_paths",
     "build_path_system",
+    "build_path_system_batch",
+    "ecmp_path_system",
     "update_path_system",
     "clear_routing_cache",
     "set_apsp_backend",
@@ -588,6 +597,7 @@ def _shard_by_dst(
     dst: np.ndarray,
     rows_cap: int,
     pairs_cap: int,
+    blocks: np.ndarray | None = None,
 ) -> list:
     """Split ``sel`` into dst-sorted shards of <= ``rows_cap`` distinct dsts
     AND <= ``pairs_cap`` pairs.
@@ -598,7 +608,14 @@ def _shard_by_dst(
     pair cap bounds the *frontier* working set the same way — per-level
     candidate/prefix temporaries scale with the number of pairs expanding
     together, and at 10k-switch scale an uncapped shard would hold every
-    commodity at once.  Per-pair results are shard-layout independent.
+    commodity at once.
+
+    ``blocks`` (the cross-instance batch build's group bases) additionally
+    splits at topology-block boundaries, so every shard's destinations live
+    in ONE block and its tile can be block-compact (group width, not the
+    composed width).  Since global ids sort block-contiguously this only
+    inserts cut points, never reorders — per-pair results are shard-layout
+    independent either way (CT-build).
     """
     if not len(sel):
         return []
@@ -609,6 +626,9 @@ def _shard_by_dst(
     row_grp = distinct // rows_cap
     pair_grp = np.arange(len(s)) // pairs_cap
     tail = (row_grp[1:] != row_grp[:-1]) | (pair_grp[1:] != pair_grp[:-1])
+    if blocks is not None and len(blocks) > 1:
+        blk = np.searchsorted(blocks, d, side="right")
+        tail = tail | (blk[1:] != blk[:-1])
     change = np.r_[True, tail]
     bounds = np.flatnonzero(change)
     return [s[b:e] for b, e in zip(bounds, np.r_[bounds[1:], len(s)])]
@@ -623,9 +643,81 @@ def _dist_tile(dist: np.ndarray, rows: np.ndarray) -> np.ndarray:
     return tile
 
 
+class _BlockDist:
+    """Block-diagonal distance view over G disjoint topology groups.
+
+    The cross-instance batch build places each distinct topology's node ids
+    in its own contiguous block (group g occupies ``[bases[g], bases[g] +
+    n_g)`` of the combined id space) and runs one dst-sharded enumeration
+    over every group's pairs.  This view supplies what the enumerator needs
+    — per-pair base hops over the composed id space, and per-shard
+    expansion state — without ever materializing an (N_total)^2 matrix or
+    an N_total-wide neighbor table.
+
+    Shards are **block-local**: ``_shard_by_dst`` cuts at block boundaries,
+    so every shard's pairs live in ONE group and ``shard_ctx`` hands
+    ``_batched_round`` that group's own neighbor table, a group-width f32
+    distance tile (exactly what ``_dist_tile`` would build for the
+    standalone instance), and the pairs' LOCAL ids.  Each shard round is
+    therefore literally the sequential build's computation — identical
+    arrays in, identical canonical tie order out — which is why the
+    composed build is bit-identical to B sequential builds (CT-build) with
+    zero per-level translation cost, and why results arrive already in
+    instance-local ids.
+    """
+
+    def __init__(self, dists: list, nbrs: list, bases: np.ndarray):
+        self.dists = dists  # per-group canonical int16 (or float) matrices
+        self.nbrs = nbrs  # per-group padded local neighbor tables
+        self.bases = np.asarray(bases, dtype=np.int64)  # (G,) block offsets
+        self.n = (
+            int(self.bases[-1]) + int(dists[-1].shape[0]) if dists else 0
+        )
+        # shard tiles are group-wide, not composed-wide, so the row budget
+        # follows the widest group
+        self.n_tile = max((d.shape[0] for d in dists), default=0)
+
+    def _group_of(self, ids: np.ndarray) -> np.ndarray:
+        return np.searchsorted(self.bases, ids, side="right") - 1
+
+    def pair_hops(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+        """f32 hop distances for global-id pairs (+inf across blocks)."""
+        out = np.full(len(src), np.inf, dtype=np.float32)
+        g = self._group_of(src)
+        same = g == self._group_of(dst)
+        for gi in np.unique(g[same]):
+            m = same & (g == gi)
+            b = int(self.bases[gi])
+            out[m] = hops_to_f32(self.dists[gi][src[m] - b, dst[m] - b])
+        return out
+
+    def shard_ctx(
+        self, rows: np.ndarray, src: np.ndarray, dst: np.ndarray
+    ) -> tuple:
+        """Block-local expansion state for one shard: ``(nbr, tile, src,
+        dst)`` with every array in the shard's OWN group's local id space.
+
+        ``rows``/``src``/``dst`` are global ids that must live in one group
+        (``_shard_by_dst`` with ``blocks`` guarantees it).  The tile is the
+        group-width gather ``_dist_tile`` would produce for the standalone
+        instance — trailing +inf sentinel column included — and the group's
+        padded neighbor table uses the matching local sentinel, so the
+        receiving ``_batched_round`` is indistinguishable from a sequential
+        per-instance call.
+        """
+        g = int(self._group_of(rows[:1])[0])
+        b = int(self.bases[g])
+        d = self.dists[g]
+        n_g = d.shape[0]
+        tile = np.empty((len(rows), n_g + 1), dtype=np.float32)
+        tile[:, :n_g] = hops_to_f32(d[rows - b])
+        tile[:, n_g] = np.inf
+        return self.nbrs[g], tile, src - b, dst - b
+
+
 def _k_shortest_unique(
-    nbr: np.ndarray,
-    dist: np.ndarray,
+    nbr: np.ndarray | None,
+    dist: "np.ndarray | _BlockDist",
     src: np.ndarray,
     dst: np.ndarray,
     k: int,
@@ -654,11 +746,33 @@ def _k_shortest_unique(
     canonical form and no (N+1)^2 float copy ever exists.  Shards partition
     the pair set, and per-pair results are independent of sharding, so the
     returned path sets are identical to the unsharded enumeration.
+
+    ``dist`` may also be a ``_BlockDist`` view — the cross-instance batch
+    build's block-diagonal composition (``nbr`` is then unused; each
+    shard gets its group's own table from ``shard_ctx``).  Global dst ids
+    sort group-contiguously, so the same dst-sharding doubles as
+    (instance-group, pair) sharding — with cuts at block boundaries so
+    every shard is block-local — and both caps keep their
+    ``REPRO_ROUTE_TILE_BYTES`` derivation with ``n`` the widest group's
+    node count (the actual tile width), not the composed total.
+
+    ``device`` is where the ``kernel`` admission backend runs the prune.
     """
     Q = len(src)
     results: list[list[list[int]]] = [[] for _ in range(Q)]
-    base = hops_to_f32(dist[src, dst])
-    n = dist.shape[0]
+    if isinstance(dist, _BlockDist):
+        base = dist.pair_hops(src, dst)
+        n = dist.n_tile  # tiles (and their row budget) are group-wide
+        ctx_of = dist.shard_ctx
+        blocks = dist.bases
+    else:
+        base = hops_to_f32(dist[src, dst])
+        n = dist.shape[0]
+        blocks = None
+
+        def ctx_of(rows: np.ndarray, s: np.ndarray, d: np.ndarray) -> tuple:
+            return nbr, _dist_tile(dist, rows), s, d
+
     active = np.flatnonzero(np.isfinite(base))
     if len(active) == 0:
         return results
@@ -695,15 +809,18 @@ def _k_shortest_unique(
             lo = slack[active] <= 1
             buckets = [(True, active[lo]), (False, active[~lo])]
         for lo_slack, sel in buckets:
-            for sh in _shard_by_dst(sel, dst, rows_cap, pairs_cap):
+            for sh in _shard_by_dst(sel, dst, rows_cap, pairs_cap, blocks):
                 obs.counter("build/shards").inc()
                 with obs.span("build/shard", pairs=len(sh),
                               lo_slack=bool(lo_slack)):
                     rows = np.unique(dst[sh])  # sorted — searchsorted below
+                    nbr_sh, tile, src_sh, dst_sh = ctx_of(
+                        rows, src[sh], dst[sh]
+                    )
                     dst_row = np.searchsorted(rows, dst[sh])
                     found = _batched_round(
-                        nbr, _dist_tile(dist, rows), src[sh], dst[sh],
-                        dst_row, base[sh] + slack[sh], k, max_enum,
+                        nbr_sh, tile, src_sh, dst_sh, dst_row,
+                        base[sh] + slack[sh], k, max_enum,
                         check_simple=not lo_slack, device=device,
                     )
                     for j, q in enumerate(sh):
@@ -713,6 +830,54 @@ def _k_shortest_unique(
         active = np.asarray(sorted(still), dtype=np.int64)
         slack[active] += 1
     return results
+
+
+def _k_shortest_paths_dfs(
+    top: Topology,
+    pairs: list[tuple[int, int]],
+    k: int = 8,
+    max_slack: int = 4,
+    max_enum: int = 4096,
+    dist: np.ndarray | None = None,
+) -> list[list[list[int]]]:
+    """Historical per-pair Python DFS (reference / benchmark baseline only)."""
+    if dist is None:
+        dist = apsp_hops(top.adjacency())
+    nbrs = top.adjacency_lists()
+
+    def enumerate_one(s, t, length_cap):
+        paths: list[list[int]] = []
+        stack: list[tuple[int, float, list[int]]] = [(s, length_cap, [s])]
+        while stack and len(paths) < max_enum:
+            u, remaining, path = stack.pop()
+            if u == t:
+                paths.append(path)
+                continue
+            if remaining <= 0:
+                continue
+            in_path = set(path)
+            for v in nbrs[u]:
+                v = int(v)
+                if v in in_path:
+                    continue
+                if 1 + dist[v, t] <= remaining:
+                    stack.append((v, remaining - 1, path + [v]))
+        return paths
+
+    out: list[list[list[int]]] = []
+    for s, t in pairs:
+        base = dist[s, t]
+        if not np.isfinite(base):
+            out.append([])
+            continue
+        found: list[list[int]] = []
+        for slack in range(max_slack + 1):
+            found = enumerate_one(s, t, base + slack)
+            if len(found) >= k:
+                break
+        found.sort(key=len)
+        out.append(found[:k])
+    return out
 
 
 def k_shortest_paths(
@@ -981,6 +1146,262 @@ def build_path_system(
     if checks_enabled():
         check_path_system(ps, top, name="build_path_system")
     return ps
+
+
+def _group_slack_init(
+    top: Topology,
+    entry: dict,
+    dist: np.ndarray,
+    src_u: np.ndarray,
+    dst_u: np.ndarray,
+    k: int,
+    max_slack: int,
+) -> np.ndarray:
+    """Per-unique-pair slack budgets for one topology group.
+
+    Mirrors ``k_shortest_paths``' ``use_counts=True`` gating exactly — the
+    cached walk-count table while it fits ``_WALK_TABLE_BYTES``, batched
+    row powers (``_subset_slack``) beyond — and replicates the counts ->
+    slack decision rule of ``_k_shortest_unique`` verbatim, so the batch
+    build hands the combined enumeration the same per-pair budgets the
+    sequential builds would compute.  Budgets are purely a cost knob
+    (path sets are budget-invariant past the minimum), but matching them
+    keeps the two paths' work — and wall-clock rows — comparable.
+    """
+    q = len(src_u)
+    slack = np.zeros(q, dtype=np.int64)
+    if max_slack < 1 or k <= 1 or not q:
+        return slack
+    n = top.n_switches
+    lmax = max(_finite_dist_max(dist) + 1, 1)
+    if lmax * n * n * 4 > _WALK_TABLE_BYTES:
+        return _subset_slack(_slack_adj(top, entry), dist, src_u, dst_u, k)
+    counts = _cached_walk_counts(top, entry, dist)
+    base = hops_to_f32(dist[src_u, dst_u])
+    active = np.flatnonzero(np.isfinite(base))
+    if not len(active):
+        return slack
+    d = base[active].astype(np.int64)
+    pos = d >= 1  # src == dst pairs keep slack 0
+    ai, di = active[pos], d[pos]
+    w_d = counts[di - 1, src_u[ai], dst_u[ai]]
+    w_d1 = counts[np.minimum(di, len(counts) - 1), src_u[ai], dst_u[ai]]
+    w_d1 = np.where(di < len(counts), w_d1, 0.0)
+    slack[ai] = np.where(w_d >= k, 0, np.where(w_d + w_d1 >= k, 1, 2))
+    return slack
+
+
+def build_path_system_batch(
+    tops: "list[Topology]",
+    comms: "list[Commodities]",
+    k: int = 8,
+    max_slack: int = 4,
+    max_enum: int = 4096,
+    keep_node_paths: bool = False,
+    cache: bool = True,
+    bucket: bool = True,
+    device: "str | torch.device" = "cuda",
+):
+    """Build B instances' routing tables as ONE cross-instance enumeration.
+
+    Pipeline (the batch rung of the construction stack)::
+
+        group by topology fingerprint     (identical topologies share a block)
+          |  per group: APSP + neighbor table + slack budgets  (cached state)
+          v
+        block-diagonal composition        (group g's ids offset by bases[g])
+          |  ONE level-synchronous frontier pass over every group's pairs,
+          |  dst-sharded -> (instance-group, pair) shards, caps from
+          |  REPRO_ROUTE_TILE_BYTES (block-compact tiles, no composed matrix)
+          v
+        per-instance distribution         (local ids; reverse src>dst)
+          |  streamed _paths_to_slots per instance (bounded row chunks)
+          v
+        PathSystemBatch.from_systems      (common envelope, gather tables)
+
+    Returns a ``core.flow.PathSystemBatch`` whose ``systems[i]`` is
+    **byte-identical** to ``build_path_system(tops[i], comms[i], ...)``:
+    per-pair enumeration never leaves its block (the composed neighbor
+    table is block-diagonal and cross-block distances are +inf), the
+    canonical (length, lex) tie order is invariant under the uniform
+    per-block id offset, and the frontier cap binds per pair — so sharding
+    instances together changes where the work happens, never its result
+    (INVARIANTS.md CT-build; asserted by ``tests/test_torch_buildbatch.py``).
+
+    The win is amortization: every expansion level's fixed numpy overhead
+    is paid once for the whole batch instead of once per instance, and
+    duplicate (topology, pair) work dedups across instances — a sweep's
+    probe matrices over one topology collapse to the union of their pairs.
+
+    ``device`` is where each group's APSP and the ``kernel`` admission
+    prune run; the returned tables are host numpy arrays, identical on
+    every device.
+    """
+    from .flow import PathSystemBatch  # local: flow imports PathSystem et al
+
+    dev = resolve(device)
+
+    tops = list(tops)
+    comms = list(comms)
+    if len(tops) != len(comms):
+        raise ValueError(
+            f"build_path_system_batch needs one Commodities per topology: "
+            f"got {len(tops)} topologies, {len(comms)} commodity sets"
+        )
+    if not tops:
+        raise ValueError("build_path_system_batch needs at least one instance")
+
+    B = len(tops)
+    entries = [_topo_entry(t, cache=cache) for t in tops]
+
+    # ---- group instances by edge-set fingerprint ------------------------- #
+    gid_of: dict[tuple, int] = {}
+    group_rep: list[int] = []  # representative instance index per group
+    inst_group = np.empty(B, dtype=np.int64)
+    for i, t in enumerate(tops):
+        key = _topo_key(t)
+        g = gid_of.get(key)
+        if g is None:
+            g = len(group_rep)
+            gid_of[key] = g
+            group_rep.append(i)
+        inst_group[i] = g
+    G = len(group_rep)
+    members: list[list[int]] = [[] for _ in range(G)]
+    for i in range(B):
+        members[int(inst_group[i])].append(i)
+
+    # ---- per-instance canonical pair keys, per-group unique pair sets ---- #
+    inst_keys: list[np.ndarray] = []
+    for i in range(B):
+        n_g = tops[i].n_switches
+        s = np.asarray(comms[i].src, dtype=np.int64)
+        d = np.asarray(comms[i].dst, dtype=np.int64)
+        inst_keys.append(np.minimum(s, d) * n_g + np.maximum(s, d))
+    group_keys = [
+        np.unique(np.concatenate([inst_keys[i] for i in members[g]]))
+        for g in range(G)
+    ]
+
+    # ---- block-diagonal composition -------------------------------------- #
+    sizes = np.array([tops[group_rep[g]].n_switches for g in range(G)],
+                     dtype=np.int64)
+    bases = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    group_dist = []
+    group_nbr = []
+    for g in range(G):
+        rep = group_rep[g]
+        group_dist.append(_cached_dist(tops[rep], entries[rep], dev))
+        group_nbr.append(_cached_nbr(tops[rep], entries[rep]))
+
+    offs = np.concatenate(
+        [[0], np.cumsum([len(gk) for gk in group_keys])]
+    ).astype(np.int64)
+    src_all = np.empty(int(offs[-1]), dtype=np.int64)
+    dst_all = np.empty(int(offs[-1]), dtype=np.int64)
+    slack_all = np.empty(int(offs[-1]), dtype=np.int64)
+    for g in range(G):
+        gk = group_keys[g]
+        n_g = int(sizes[g])
+        b = int(bases[g])
+        rep = group_rep[g]
+        s_u, d_u = gk // n_g, gk % n_g
+        sl = slice(int(offs[g]), int(offs[g + 1]))
+        src_all[sl] = s_u + b
+        dst_all[sl] = d_u + b
+        slack_all[sl] = _group_slack_init(
+            tops[rep], entries[rep], group_dist[g], s_u, d_u, k, max_slack
+        )
+
+    # ---- ONE combined enumeration over every group's pairs --------------- #
+    uniq = _k_shortest_unique(
+        None, _BlockDist(group_dist, group_nbr, bases), src_all, dst_all,
+        k, max_slack, max_enum, slack_init=slack_all, device=dev,
+    )
+
+    # ---- distribute per instance, stream slot assembly ------------------- #
+    systems = []
+    for i in range(B):
+        g = int(inst_group[i])
+        inv = np.searchsorted(group_keys[g], inst_keys[i]) + int(offs[g])
+        s_i = np.asarray(comms[i].src, dtype=np.int64)
+        d_i = np.asarray(comms[i].dst, dtype=np.int64)
+        # enumeration already collected LOCAL ids (block-compact shards),
+        # so distribution is copy + src>dst reversal, like the sequential
+        # build — no per-element offset arithmetic here
+        rev = (s_i > d_i).tolist()
+        all_paths: list[list[list[int]]] = []
+        for j, q in enumerate(inv.tolist()):
+            found = uniq[q]
+            if rev[j]:
+                paths = [p[::-1] for p in found]
+            else:
+                # copy so duplicate pairs never alias
+                paths = [list(p) for p in found]
+            all_paths.append(paths)
+        unrouted = np.array([len(p) == 0 for p in all_paths], dtype=bool)
+        E = tops[i].n_edges
+        pe, path_len, owner, kept = _paths_to_slots(tops[i], entries[i],
+                                                    all_paths)
+        systems.append(PathSystem(
+            n_edges=E,
+            path_edges=pe,
+            path_len=path_len,
+            path_owner=owner,
+            demands=comms[i].demand[~unrouted].astype(np.float32),
+            capacities=np.ones(2 * E, dtype=np.float32),
+            n_commodities=int(kept),
+            node_paths=all_paths if keep_node_paths else None,
+            unrouted=unrouted,
+            src=s_i.copy(),
+            dst=d_i.copy(),
+            k=k,
+            max_slack=max_slack,
+        ))
+    batch = PathSystemBatch.from_systems(systems, bucket=bucket)
+    if checks_enabled():
+        check_built_batch(batch, tops, name="build_path_system_batch")
+    return batch
+
+
+def ecmp_path_system(
+    top: Topology,
+    comm: Commodities,
+    n_ways: int = 64,
+    dist: np.ndarray | None = None,
+    keep_node_paths: bool = False,
+    cache: bool = True,
+    device: "str | torch.device" = "cuda",
+) -> PathSystem:
+    """Equal-cost shortest-path (ECMP) routing tables (paper §3, Table 1).
+
+    ECMP forwarding can use exactly the *shortest* paths: every prefix of a
+    shortest path extends along any next hop that stays on a shortest path,
+    so the set of distinct s->t routes realizable by per-hop equal-cost
+    splitting is the set of shortest simple paths, capped in practice by the
+    hardware's way count (64-way in the paper's Table 1, 16-way commodity
+    gear).  That is ``build_path_system`` with ``max_slack=0`` and
+    ``k = n_ways``: the batched enumerator admits only prefixes that can
+    still complete at the base distance, and its canonical (lexicographic)
+    tie order makes the returned ECMP sets a pure function of (graph, pair,
+    n_ways) — bit-identical across APSP backends and enumeration shards,
+    which is what lets ``repro_torch.sim`` hash flows onto them deterministically.
+
+    The paper's §3 observation (Table 1, Fig 9) falls straight out of the
+    result: on a random graph most pairs have very few equal-cost paths, so
+    ECMP leaves many links unused (``repro_torch.sim.telemetry.path_diversity``
+    counts them), while a k-ary fat-tree gives every inter-pod edge-switch
+    pair exactly ``(k/2)^2`` equal-cost paths.  Per-commodity distinct-path
+    counts are ``np.bincount(ps.path_owner, minlength=ps.n_commodities)``.
+    ``device`` runs the APSP and the ``kernel`` admission prune, as in
+    ``build_path_system``.
+    """
+    if n_ways < 1:
+        raise ValueError(f"n_ways must be >= 1, got {n_ways}")
+    return build_path_system(
+        top, comm, k=n_ways, max_slack=0, dist=dist,
+        keep_node_paths=keep_node_paths, cache=cache, device=device,
+    )
 
 
 # --------------------------------------------------------------------------- #

@@ -126,11 +126,30 @@ SPECS: dict[str, EnvSpec] = {
             "(see repro_torch.core.routing.set_admission_backend).",
         ),
         EnvSpec(
+            "REPRO_BUILD_PIPELINE",
+            _parse_flag,
+            True,
+            "Route sweeps through the pipelined/batched path-system build "
+            "(0 falls back to sequential per-instance builds).",
+        ),
+        EnvSpec(
             "REPRO_LP_PATH_LIMIT",
             _parse_int(minimum=0, hint=" (paths at or below it go to the "
                                        "exact LP in throughput())"),
             20000,
             "throughput()'s LP-vs-MW cutoff in path variables.",
+        ),
+        EnvSpec(
+            "REPRO_SIM_MAX_STEPS",
+            _parse_int(minimum=1, hint=" (hard cap on the batched sim scan)"),
+            200_000,
+            "Hard cap on a single sim scan's step count.",
+        ),
+        EnvSpec(
+            "REPRO_SIM_MAX_BATCH",
+            _parse_int(minimum=1, hint=" (hard cap on the batched sim scan)"),
+            1024,
+            "Hard cap on the instance batch width of one sim scan.",
         ),
         EnvSpec(
             "REPRO_CHECK",

@@ -13,12 +13,14 @@ wrapper                    CUDA source (csrc/)             replaces (repro/...)
 A wrapper launches its kernel on CUDA tensors and uses its plain torch
 version on CPU tensors; it never falls back from one to the other.  The
 kernels are compiled with ``nvcc`` at first use (``_build``), never at
-import.  Each wrapper module counts its kernel launches (``launch_counts``).
+import.  Each wrapper module counts its kernel launches (``launch_counts``)
+under ``_build.COUNT_LOCK``, so launches from the build pipeline's worker
+thread and the caller's thread are all counted.
 """
 
 from __future__ import annotations
 
-from . import admission, congestion, minplus, ops, power
+from . import _build, admission, congestion, minplus, ops, power
 
 __all__ = ["admission", "congestion", "minplus", "ops", "power",
            "launch_counts", "reset_launch_counts"]
@@ -43,5 +45,6 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in _COUNTERS.values():
-        setattr(mod, attr, 0)
+    with _build.COUNT_LOCK:
+        for mod, attr in _COUNTERS.values():
+            setattr(mod, attr, 0)

@@ -25,7 +25,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check_launch"]
+__all__ = ["SOURCES", "BUILD_DIR", "COUNT_LOCK", "build_all", "library",
+           "check_launch"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: src/repro_torch/kernels -> repository root
@@ -52,6 +53,11 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+#: Guards every wrapper's launch counter: the build pipeline launches
+#: kernels from its worker thread while the caller's thread launches its
+#: own, and ``+=`` on a module global is not atomic.
+COUNT_LOCK = threading.Lock()
 
 #: per-kernel build record of the last build_all(): seconds and ptxas report
 BUILD_LOG: dict[str, dict] = {}

@@ -113,7 +113,8 @@ def _admission_cuda(d, r, c, p):
                 out.data_ptr(), m, cc, w, stream,
             )
         _build.check_launch(err, "admission kernel")
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
     return out != 0
 
 

@@ -233,10 +233,11 @@ def _congestion_cuda(b, r, w, ext):
                 ext[1].ctypes.data, Bt, P, S, vector_width(b), stream,
             )
         _build.check_launch(err, "congestion kernel")
-        if single:
-            launches += 1
-        else:
-            batch_launches += 1
+        with _build.COUNT_LOCK:
+            if single:
+                launches += 1
+            else:
+                batch_launches += 1
     if single:
         return loads[0], costs[0]
     return loads, costs

@@ -269,10 +269,11 @@ def _launch(a, b, out, hops: bool):
                  None if scratch is None else scratch.data_ptr(), m, n, k,
                  plan["k_per_split"], plan["splits"], width, stream)
     _build.check_launch(err, "min-plus kernel")
-    if hops:
-        hops_launches += 1
-    else:
-        launches += 1
+    with _build.COUNT_LOCK:
+        if hops:
+            hops_launches += 1
+        else:
+            launches += 1
     return out
 
 

@@ -113,14 +113,17 @@ def congestion(incidence, rates, prices, extents=None):
     return _congestion(incidence, rates, prices, extents)
 
 
-def congestion_loads(incidence, rates) -> torch.Tensor:
+def congestion_loads(incidence, rates, extents=None) -> torch.Tensor:
     """Loads-only ``B^T r`` over a dense (or stacked rank-3) incidence: the
-    fused call with zero prices.  The kernel reads each B entry once either
-    way, so the discarded costs half moves no extra bytes."""
+    fused call with zero prices, over each member's ``extents=(rows,
+    cols)`` when given (as ``congestion``: the kernel reads none of the
+    padding, and a filler member's loads are exact zeros).  The kernel
+    reads each B entry once either way, so the discarded costs half moves
+    no extra bytes."""
     b = incidence
     zeros = torch.zeros(b.shape[:-2] + (b.shape[-1],), dtype=torch.float32,
                         device=b.device)
-    return _congestion(b, rates, zeros)[0]
+    return _congestion(b, rates, zeros, extents)[0]
 
 
 def _squarings_to_cover(cover: int) -> int:

@@ -145,5 +145,6 @@ def _matmul_cuda(a, b):
             fn = lib.matmul_f64_launch if f64 else lib.matmul_f32_launch
             err = fn(*args, stream)
     _build.check_launch(err, "matmul kernel")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

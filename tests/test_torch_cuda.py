@@ -342,3 +342,117 @@ def test_delta_update_on_card_equals_rebuild(dev):
         np.testing.assert_array_equal(pad[0], pad[1])
         for f in ("path_len", "path_owner", "unrouted", "demands"):
             np.testing.assert_array_equal(getattr(ps, f), getattr(full, f))
+
+
+def test_congestion_loads_extents_on_card(dev):
+    """``ops.congestion_loads`` over extents: each member equals the single
+    call on its unpadded incidence bit for bit, a filler member is zeros."""
+    rng = np.random.default_rng(5)
+    sizes = [(300, 4100), (171, 4097), (0, 0), (64, 703)]
+    P, S = 300, 4100
+    b = _incidence(rng, len(sizes), P, S)
+    r = rng.random((len(sizes), P), np.float32)
+    for i, (pi, si) in enumerate(sizes):
+        b[i, pi:], b[i, :, si:], r[i, pi:] = (np.nan,) * 3
+    b, r = torch.from_numpy(b).to(dev), torch.from_numpy(r).to(dev)
+    ext = ([p for p, _ in sizes], [s for _, s in sizes])
+    before = kernels.launch_counts()
+    loads = ops.congestion_loads(b, r, extents=ext)
+    assert kernels.launch_counts()["congestion_batch"] == \
+        before["congestion_batch"] + 1
+    for i, (pi, si) in enumerate(sizes):
+        assert not loads[i, si:].any()
+        if pi == 0:
+            assert not loads[i].any()
+            continue
+        one = ops.congestion_loads(b[i, :pi, :si].contiguous(),
+                                   r[i, :pi].contiguous())
+        assert torch.equal(one, loads[i, :si])
+
+
+def _sim_systems(dev):
+    from repro_torch.core import build_path_system_batch
+
+    tops = [jellyfish(60, 10, 6, seed=s) for s in range(3)]
+    comms = [random_permutation_traffic(t, seed=s + 10)
+             for s, t in enumerate(tops)]
+    return build_path_system_batch(tops, comms, k=8, max_slack=3, device=dev)
+
+
+def test_simulate_on_card_deterministic(dev):
+    from repro_torch.analysis.contracts import check_sim_state
+    from repro_torch.sim import (
+        SimConfig,
+        simulate,
+        steady_poisson,
+        steady_state_throughput,
+    )
+
+    batch = _sim_systems(dev)
+    wl = steady_poisson(40, rate=6.0, size=12.0)
+    cfg = SimConfig(max_flows=512, max_arrivals=8, wf_iters=6)
+    runs = {}
+    for key, be in (("a", "dense"), ("b", "dense"), ("g", "gather")):
+        before = kernels.launch_counts()
+        runs[key] = simulate(batch, wl, policy="ecmp", config=cfg, seed=3,
+                             backend=be, device=dev)
+        launched = kernels.launch_counts()["congestion_batch"] \
+            - before["congestion_batch"]
+        assert (launched > 0) == (be == "dense")
+    a, b, g = runs["a"], runs["b"], runs["g"]
+    check_sim_state(a)
+    for f in ("throughput", "comm_delivered", "comm_offered", "fct_hist",
+              "util_sum", "admitted", "drops"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    # ecmp's choices do not depend on loads: the same arrivals and paths,
+    # rates to the dense product's rounding
+    assert np.array_equal(a.admitted, g.admitted)
+    np.testing.assert_allclose(steady_state_throughput(a),
+                               steady_state_throughput(g), rtol=1e-4)
+
+
+def test_mptcp_and_waterfill_on_card(dev):
+    from repro_torch.core import mptcp_throughput
+    from repro_torch.sim import waterfill_rates
+
+    batch = _sim_systems(dev)
+    ps = batch.systems[0]
+    before = kernels.launch_counts()
+    dense = mptcp_throughput(ps, iters=600, backend="dense", device=dev)
+    assert kernels.launch_counts()["congestion"] == before["congestion"] + 602
+    gather = mptcp_throughput(ps, iters=600, backend="gather", device=dev)
+    cpu = mptcp_throughput(ps, iters=600, backend="gather", device="cpu")
+    np.testing.assert_allclose(dense.per_flow, gather.per_flow, atol=1e-4)
+    np.testing.assert_allclose(gather.per_flow, cpu.per_flow, atol=2e-6)
+    rd, ld = waterfill_rates(batch, wf_iters=32, backend="dense", device=dev)
+    rg, lg = waterfill_rates(batch, wf_iters=32, backend="gather", device=dev)
+    np.testing.assert_allclose(rd, rg, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ld, lg, rtol=1e-5, atol=1e-6)
+
+
+def test_build_batch_and_pipeline_on_card(dev):
+    from repro_torch.core import build_path_system_batch, stream_builds
+
+    tops = [jellyfish(80, 10, 6, seed=s) for s in range(2)]
+    comms = [random_permutation_traffic(t, seed=s) for s, t in enumerate(tops)]
+    clear_routing_cache()
+    cpu = build_path_system_batch(tops, comms, k=8, max_slack=3,
+                                  device="cpu", cache=False)
+
+    def thunk():
+        return build_path_system_batch(tops, comms, k=8, max_slack=3,
+                                       device=dev, cache=False)
+
+    counts = {}
+    for on in (True, False):
+        before = kernels.launch_counts()
+        out = list(stream_builds([thunk, thunk], enabled=on, device=dev))
+        after = kernels.launch_counts()
+        counts[on] = {k: after[k] - before[k] for k in after}
+        for got in out:
+            for a, b in zip(got.systems, cpu.systems):
+                for f in ("path_edges", "path_len", "path_owner", "demands"):
+                    assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    # launches from the pipeline's worker thread are all counted
+    assert counts[True] == counts[False]
+    assert counts[True]["admission"] > 0 and counts[True]["minplus_hops"] > 0
