@@ -6,7 +6,8 @@
 Runs the paper's Fig 1c capacity path, the spectral lambda_2 path, the
 incremental-expansion path and the §5 routing paths (batched path-system
 builds with the build pipeline, ECMP, fluid MPTCP, the flow-level
-simulator) at full width on the card and prints one JSON line per phase:
+simulator with live topology events) and the paper's other topology
+families at full width on the card and prints one JSON line per phase:
 
 1. ``build``   compile the hand-written CUDA kernels from ``csrc/`` (one
                ``nvcc`` per source, started together).
@@ -101,11 +102,32 @@ simulator) at full width on the card and prints one JSON line per phase:
                ``pipeline/stall_s`` and ``pipeline/overlap_s``; when the
                budget is short this pair drops to k=16 (against a
                sequential search there) before the search above does.
+   ``events``  live topology events (§4.3) at the ``sim`` instance with
+               the CT checks on: for ``ksp_lc`` and ``ecmp``,
+               ``simulate_events`` with an empty schedule and with
+               ``max_seg=40`` equal to ``simulate`` bit for bit, then links
+               failed (5 %) at step 40, healed at 80 and 16 switches added at
+               120: volume conserved, the carry contract held at every
+               boundary, the migrations (survived, reselected, killed), the
+               reroute seconds per boundary and each segment's backend and
+               step ms; an MTBF 40 / MTTR 20 failure schedule on ``ecmp``;
+               and the schedule at 2 x RRG(64, 10, 6), 48 steps, on the card
+               (``dense``) against the CPU (``gather``) from one CPU-drawn
+               stream: equal migrations, accumulators within 1e-3.
+   ``families``  Fig 3 at full size (SWDC ring, 2D torus, 3D hex torus
+               and Jellyfish on 484 switches of 8 ports, 2 servers each),
+               Fig 12 (12 pods x 12 switches, r = 8 of 10 ports, 0 and 5
+               links local, with ``plan_cables``) and Fig 2's degree-diameter
+               cases: each topology equal to the CPU build by fingerprint,
+               each alpha by ``capacity.alpha_of`` with MW on ``dense`` (the
+               single congestion kernel), Fig 3's also on ``gather`` within
+               5e-3; the Jellyfish / best-SWDC ratio (printed, not checked).
 6. ``kernels`` per kernel: launches on each path (``apsp``, ``apsp_f32``,
                ``spectral``, the probe,
                ``alpha_of``, ``expansion``, ``build_batch``,
                ``probe_sequential``, ``ecmp``, ``mptcp``, ``sim``, the
-               bisection and both wave bisections, each run with
+               bisection and both wave bisections, ``events``,
+               ``families``, each run with
                the counts set to 0 just before it and read just after; each
                kernel must be launched by the paths that use it), largest
                difference from the plain version, and the times of phase 2
@@ -638,6 +660,356 @@ def sim_phase(run: PathRun, n_seeds: int = 8, n: int = 512, ports: int = 24,
             "ecmp_gather_step_ms": eg_s / steps * 1e3,
             "loads_ms_per_call": loads_t, "ksp_lc_rerun_trace": trace,
             "launches": run.launches["sim"]}
+
+
+#: ``SimResult`` accumulators a segmented run must reproduce.
+SIM_FIELDS = ("throughput", "active", "fct_hist", "fct_sum", "fct_count",
+              "comm_delivered", "comm_offered", "util_sum", "drops",
+              "admitted", "blackholed", "blackholed_total", "inflight",
+              "demands", "slot_valid")
+
+
+def event_schedule(steps: int, grow: int = 16) -> list:
+    """Links fail (5 %) at a quarter of the horizon, heal at half, and the
+    fabric grows by ``grow`` switches at three quarters."""
+    from repro_torch.sim import Event
+
+    return [Event(step=steps // 4, kind="fail_links", fraction=0.05, seed=1,
+                  tag="f"),
+            Event(step=steps // 2, kind="heal_links", heal_of="f"),
+            Event(step=3 * steps // 4, kind="expand", grow=grow, seed=2)]
+
+
+def traced_events_run(run: PathRun, *args, **kw) -> tuple:
+    """One ``simulate_events`` with the span tracer on: the run, then its
+    reroute seconds per boundary and, per segment, its steps, backend and
+    milliseconds a step (host clock, each segment ends in a host read)."""
+    from repro_torch import obs
+    from repro_torch.sim import simulate_events
+
+    prev = obs.set_trace(True)
+    obs.reset_trace()
+    try:
+        ev = simulate_events(*args, device=run.dev, **kw)
+    finally:
+        obs.set_trace(prev)
+    spans = obs.get_spans()
+    reroute = [{"step": sp.attrs["step"], "seconds": sp.wall_s}
+               for sp in spans if sp.name == "sim/reroute"]
+    segments = [{"t0": sp.attrs["t0"], "steps": sp.attrs["steps"],
+                 "backend": sp.attrs["backend"],
+                 "step_ms": sp.wall_s / sp.attrs["steps"] * 1e3}
+                for sp in spans if sp.name == "sim/segment"]
+    return ev, reroute, segments
+
+
+def migrations(ev) -> list:
+    """Each boundary's migration counts, summed over the instances."""
+    return [{"step": r["step"], "kinds": r["kinds"],
+             **{f: int(r[f].sum()) for f in ("survived", "reselected",
+                                             "killed")},
+             "blackholed_kills": float(r["blackholed_kills"].sum())}
+            for r in ev.events]
+
+
+def events_phase(run: PathRun, n_seeds: int = 8, n: int = 512,
+                 ports: int = 24, net: int = 18, steps: int = 160,
+                 rate: float = 24.0, size: float = 48.0,
+                 max_flows: int = 2048, max_arrivals: int = 32,
+                 wf_iters: int = 10, grow: int = 16,
+                 small: tuple = (2, 64, 10, 6, 48)) -> dict:
+    """Live topology events (§4.3) at the ``sim`` phase's instance, with the
+    CT checks on (CT-sim and the carry-migration contract at every
+    boundary): for ``ksp_lc`` and ``ecmp``, an empty schedule and a
+    ``max_seg=40`` split equal ``simulate`` bit for bit, and a fail / heal
+    / expand schedule conserves volume through three migrations; then an
+    MTBF/MTTR schedule (``benchmarks/fig7_resilience.py``'s) on ``ecmp``;
+    then the schedule at a reduced size on the card (``dense``) against the
+    CPU (``gather``) from one CPU-drawn stream: equal migrations, every
+    accumulator within ``SIM_ECMP_RTOL`` of its largest magnitude."""
+    import numpy as np
+
+    from repro_torch.analysis.contracts import set_check_enabled
+    from repro_torch.core import (
+        build_path_system_batch,
+        jellyfish,
+        random_permutation_traffic,
+    )
+    from repro_torch.core.routing import clear_routing_cache
+    from repro_torch.sim import (
+        SimConfig,
+        draw_arrivals,
+        event_summary,
+        poisson_failure_schedule,
+        simulate,
+        simulate_events,
+        steady_poisson,
+        steady_state_throughput,
+    )
+
+    def same_result(a, b, what):
+        for f in SIM_FIELDS:
+            x, y = getattr(a, f), getattr(b, f)
+            check(x.shape == y.shape and np.array_equal(x, y),
+                  f"{what}: {f} differs from simulate's")
+        check(a.backend == b.backend, f"{what}: backend differs")
+
+    def conserved(res, what):
+        off = res.comm_offered.sum(axis=1, dtype=np.float64)
+        lhs = (res.comm_delivered.sum(axis=1, dtype=np.float64)
+               + res.blackholed_total + res.inflight)
+        err = float((np.abs(off - lhs) / np.maximum(off, 1.0)).max())
+        check(err <= 1e-3, f"{what}: offered != delivered + blackholed + "
+              f"in-flight (relative {err})")
+        return err
+
+    tops = [jellyfish(n, ports, net, seed=s) for s in range(n_seeds)]
+    comms = [random_permutation_traffic(t, seed=s) for s, t in enumerate(tops)]
+    wl = steady_poisson(steps, rate=rate, size=size)
+    cfg = SimConfig(max_flows=max_flows, max_arrivals=max_arrivals,
+                    wf_iters=wf_iters)
+    sched = event_schedule(steps, grow)
+    mtbf = poisson_failure_schedule(steps, mtbf_steps=40.0, mttr_steps=20.0,
+                                    start_step=steps // 6, seed=17)
+    out = {"phase": "events", "n": n, "ports": ports, "net_degree": net,
+           "seeds": n_seeds, "steps": steps, "rate": rate, "size": size,
+           "max_flows": max_flows, "max_arrivals": max_arrivals,
+           "wf_iters": wf_iters, "grow": grow,
+           "schedule": [[e.step, e.kind] for e in sched], "policies": {}}
+    prev_checks = set_check_enabled(True)
+    clear_routing_cache()
+    try:
+        def path():
+            systems = build_path_system_batch(tops, comms, k=8,
+                                              device=run.dev).systems
+            for policy in ("ksp_lc", "ecmp"):
+                rec = out["policies"][policy] = {}
+                run.sync()
+                t0 = time.perf_counter()
+                base = simulate(systems, wl, policy=policy, config=cfg,
+                                seed=0, device=run.dev)
+                rec["simulate_seconds"] = time.perf_counter() - t0
+                for max_seg in (0, 40):
+                    ev = simulate_events(tops, comms, [], wl,
+                                         systems=systems, policy=policy,
+                                         config=cfg, seed=0, max_seg=max_seg,
+                                         device=run.dev)
+                    same_result(ev.result, base,
+                                f"{policy} empty schedule, max_seg={max_seg}")
+                run.sync()
+                t0 = time.perf_counter()
+                ev, reroute, segs = traced_events_run(
+                    run, tops, comms, sched, wl, systems=systems,
+                    policy=policy, config=cfg, seed=0)
+                rec["events_seconds"] = time.perf_counter() - t0
+                check(len(ev.events) == 3 and len(event_summary(ev)) == 3,
+                      f"{policy}: {len(ev.events)} migrations, not 3")
+                summ = event_summary(ev)
+                rec.update({
+                    "empty_and_split_equal_simulate": True,
+                    "backend": base.backend,
+                    "conservation_rel_err": conserved(ev.result, policy),
+                    "migrations": migrations(ev),
+                    "reroute": reroute, "segments": segs,
+                    "final_switches": ev.tops[0].n_switches,
+                    "throughput_retention_mean": [
+                        float(np.nanmean(r["throughput_retention"]))
+                        for r in summ],
+                    "blackholed_total": float(
+                        ev.result.blackholed_total.sum()),
+                    "steady_throughput_mean": float(
+                        steady_state_throughput(ev.result).mean()),
+                    "steady_throughput_mean_no_events": float(
+                        steady_state_throughput(base).mean())})
+            ev, reroute, segs = traced_events_run(
+                run, tops, comms, mtbf, wl, systems=systems, policy="ecmp",
+                config=cfg, seed=0)
+            out["mtbf"] = {
+                "mtbf_steps": 40.0, "mttr_steps": 20.0,
+                "start_step": steps // 6, "seed": 17, "policy": "ecmp",
+                "events": [[e.step, e.kind] for e in mtbf],
+                "conservation_rel_err": conserved(ev.result, "mtbf"),
+                "migrations": migrations(ev), "reroute": reroute,
+                "segment_backends": sorted({s["backend"] for s in segs}),
+                "blackholed_total": float(ev.result.blackholed_total.sum())}
+
+        _, out["seconds"] = run("events", path)
+    finally:
+        set_check_enabled(prev_checks)
+    # the schedule at a reduced size: the card (dense) against the CPU
+    # (gather), both from the same CPU-drawn stream of every segment
+    b, sn, sp, snet, ssteps = small
+    stops = [jellyfish(sn, sp, snet, seed=s) for s in range(b)]
+    scomms = [random_permutation_traffic(t, seed=s)
+              for s, t in enumerate(stops)]
+    swl = steady_poisson(ssteps, rate=8.0, size=12.0)
+    scfg = SimConfig(max_flows=512, max_arrivals=8, wf_iters=wf_iters)
+
+    def arrivals(ts, logits, eos):
+        return draw_arrivals(7, ts, swl.rate[ts], logits, eos,
+                             swl.p_elephant, scfg.max_arrivals, device="cpu")
+
+    runs = {}
+    for where, dev, be in (("card", run.dev, "dense"), ("cpu", "cpu",
+                                                         "gather")):
+        clear_routing_cache()
+        runs[where] = simulate_events(
+            stops, scomms, event_schedule(ssteps, grow), swl, policy="ecmp",
+            config=scfg, seed=7, backend=be, device=dev, arrivals=arrivals)
+    card, cpu = runs["card"], runs["cpu"]
+    check(migrations(card) == migrations(cpu),
+          "reduced size: the card's migrations differ from the CPU's")
+    worst = 0.0
+    for f in SIM_FIELDS:
+        x = np.asarray(getattr(card.result, f), np.float64)
+        y = np.asarray(getattr(cpu.result, f), np.float64)
+        gap = float(np.abs(x - y).max() / max(np.abs(y).max(), 1.0))
+        check(gap <= SIM_ECMP_RTOL, f"reduced size: {f} on the card differs "
+              f"from the CPU's by {gap} of its largest magnitude")
+        worst = max(worst, gap)
+    out["reduced"] = {"seeds": b, "n": sn, "ports": sp, "net_degree": snet,
+                      "steps": ssteps, "policy": "ecmp",
+                      "card_backend": card.result.backend,
+                      "cpu_backend": cpu.result.backend,
+                      "migrations": migrations(card),
+                      "max_rel_gap": worst}
+    out["launches"] = run.launches["events"]
+    return out
+
+
+#: Fingerprints of the ``families`` phase's topologies as the CPU builds
+#: them (``edge_fingerprint``, seed 0; equal to the reference's by
+#: ``tests/test_torch_families.py``).
+FAMILY_FINGERPRINTS = {
+    "swdc-ring": "13b95fb7241318af538037fe6e547ee609de95da",
+    "swdc-torus2d": "4e3adad81e755989e24ca418088612980c4d5077",
+    "swdc-hex3d": "67084dd4c15de03437a73cdffe2d60d1af4facae",
+    "jellyfish": "055e7fd52df479d87fe78aa2a12b4df030a5625b",
+    "fig12-jellyfish": "a1278994e333a29fcee586cc336bdf820a543db1",
+    "fig12-local0": "fba6af03372716f30f517cdf00e404eb6698785a",
+    "fig12-local5": "3d45f1e58bceb2eea3d964daf29f8134a172d0de",
+    "dd-petersen": "cda673eba4a9a3a72dc1eda641084750ac9b4927",
+    "dd-chvatal": "e0b96139a23a0ef1dc1c7c7031eb44119364e7d5",
+    "dd-icosahedral": "f7b5bf0a062736d6c47805303f4f8340a0c43288",
+    "dd-hoffman-singleton": "8e0f8716585e4bcccbefb12537d2542ba64df578",
+    "dd-heawood": "44b6f1a86786116aa2e25f9255ff668fd7cbd486",
+    "dd-mcgee": "608930e8353dbd3a8dff864ebd1aa34433520041",
+    "dd-petersen-jellyfish": "9d9ab71931f5018f8e1b200451fdcd93f7e91ec5",
+    "dd-chvatal-jellyfish": "1e249bd4c58f69335289a0e553b930efc724b7a1",
+    "dd-icosahedral-jellyfish": "d680d1d094af23d00a926efcb6c8eea8733e7665",
+    "dd-hoffman-singleton-jellyfish":
+        "5f159ab8def7cc395763e6849972c07566defada",
+    "dd-heawood-jellyfish": "41e9bf24ccebc41c65c9f9f2deb6d6c46dc1e745",
+    "dd-mcgee-jellyfish": "b8c71fd6b9d1535cb80b615382d4c88955048bf8",
+}
+#: Fig 2's cases (``benchmarks/fig2_degree_diameter.py``): catalog graph,
+#: servers per switch.
+DD_CASES = (("petersen", 4), ("chvatal", 5), ("icosahedral", 6),
+            ("hoffman-singleton", 9), ("heawood", 4), ("mcgee", 4))
+#: MW alpha, dense against gather over 400 iterations: the CPU tests'
+#: bound (tests/test_torch_flow.py).
+MW_DENSE_GATHER_RTOL = 5e-3
+
+
+def families_phase(run: PathRun, side: int = 22, sps: int = 2,
+                   iters: int = 400, pods: int = 12, per_pod: int = 12,
+                   r: int = 8, dd_cases=DD_CASES) -> dict:
+    """The paper's other topology families at their figures' full sizes:
+    Fig 3 (SWDC ring, 2D torus and 3D hex torus against Jellyfish on
+    ``side``^2 switches of 8 ports, ``sps`` servers each), Fig 12
+    (locality-restricted Jellyfish, ``pods`` x ``per_pod`` switches, ``r``
+    network ports of 10) with its cable plan, and Fig 2 (degree-diameter
+    graphs against Jellyfish on the same equipment).  Each topology equals
+    the CPU build by fingerprint; each alpha is ``capacity.alpha_of`` with
+    MW on ``dense`` (the single-incidence congestion kernel); the Fig 3
+    alphas also on ``gather``, within ``MW_DENSE_GATHER_RTOL``."""
+    import numpy as np
+
+    from repro_torch import capacity
+    from repro_torch.core import (
+        DD_CATALOG,
+        degree_diameter_graph,
+        edge_fingerprint,
+        jellyfish,
+        jellyfish_heterogeneous,
+        localized_jellyfish,
+        plan_cables,
+        swdc_hex3d,
+        swdc_ring,
+        swdc_torus2d,
+    )
+    from repro_torch.core.routing import clear_routing_cache
+
+    n, ports = side * side, 6 + sps
+    fig3 = {
+        "swdc-ring": lambda: swdc_ring(n, ports, seed=0),
+        "swdc-torus2d": lambda: swdc_torus2d(side, ports, seed=0),
+        "swdc-hex3d": lambda: swdc_hex3d(6, max(n // 36, 1), ports, seed=0),
+        "jellyfish": lambda: jellyfish_heterogeneous(
+            np.full(n, ports), capacity.spread_servers(n * sps, n), seed=0),
+    }
+    fig12 = {"fig12-jellyfish": lambda: jellyfish(pods * per_pod, r + 2, r,
+                                                  seed=0)}
+    for local in (0, 5):
+        fig12[f"fig12-local{local}"] = (
+            lambda local=local: localized_jellyfish(pods, per_pod, r + 2, r,
+                                                    local, seed=0))
+    fig2 = {}
+    for name, dd_sps in dd_cases:
+        _, nn, deg, _ = DD_CATALOG[name]
+        fig2[f"dd-{name}"] = (lambda name=name, p=deg + dd_sps:
+                              degree_diameter_graph(name, p))
+        fig2[f"dd-{name}-jellyfish"] = (
+            lambda nn=nn, p=deg + dd_sps, s=dd_sps: jellyfish_heterogeneous(
+                np.full(nn, p), capacity.spread_servers(nn * s, nn), seed=0))
+
+    def alpha(top, backend):
+        return capacity.alpha_of(top, seed=0, k=8, slack=3, method="mw",
+                                 iters=iters, mw_backend=backend,
+                                 device=run.dev)
+
+    rows = {}
+
+    def path():
+        for name, build in {**fig3, **fig12, **fig2}.items():
+            run.sync()
+            t0 = time.perf_counter()
+            top = build()
+            a = alpha(top, "dense")
+            run.sync()
+            rows[name] = {"switches": top.n_switches,
+                          "servers": int(top.n_servers), "alpha": a,
+                          "seconds": time.perf_counter() - t0,
+                          "fingerprint": edge_fingerprint(top)}
+            if name in fig3:
+                rows[name]["gather_alpha"] = alpha(top, "gather")
+            if name in fig12:
+                rows[name]["global_cable_fraction"] = (
+                    1.0 - plan_cables(top).local_fraction)
+
+    clear_routing_cache()
+    _, secs = run("families", path)
+    for name, row in rows.items():
+        check(row["fingerprint"] == FAMILY_FINGERPRINTS[name],
+              f"{name}: fingerprint differs from the CPU build's")
+        if "gather_alpha" in row:
+            rel = abs(row["alpha"] - row["gather_alpha"]) / max(
+                abs(row["gather_alpha"]), 1e-12)
+            check(rel <= MW_DENSE_GATHER_RTOL, f"{name}: MW alpha dense "
+                  f"{row['alpha']} vs gather {row['gather_alpha']}")
+            row["dense_vs_gather_rel"] = rel
+    best_swdc = max(rows[k]["alpha"] for k in fig3 if k != "jellyfish")
+    base12 = rows["fig12-jellyfish"]["alpha"]
+    return {"phase": "families", "seconds": secs, "iters": iters,
+            "topologies": rows,
+            "fig3_jellyfish_vs_best_swdc":
+                rows["jellyfish"]["alpha"] / best_swdc,
+            "fig12_relative_throughput": {
+                k: rows[k]["alpha"] / base12 for k in fig12},
+            "fig2_jellyfish_fraction": {
+                name: rows[f"dd-{name}-jellyfish"]["alpha"]
+                / rows[f"dd-{name}"]["alpha"] for name, _ in dd_cases},
+            "launches": run.launches["families"]}
 
 
 def bisection_k(elapsed: float, probes: int, probe_s: float) -> tuple:
@@ -1500,6 +1872,14 @@ def main() -> None:
             method="mw", device=dev)
     emit({**pipeline_bisection(PathRun(dev, launches), k_wave, best_wave),
           "sequential_servers": best_wave, "k_reason": why_wave})
+    torch.cuda.empty_cache()
+
+    # ---- 5'. live topology events and the other topology families -------- #
+    run = PathRun(dev, launches)
+    emit(events_phase(run))
+    torch.cuda.empty_cache()
+    emit(families_phase(run))
+    torch.cuda.empty_cache()
 
     # ---- 6. kernels -------------------------------------------------------- #
     replaces = {
@@ -1544,6 +1924,8 @@ def main() -> None:
         "ecmp": (apsp_kernel(245), "admission"),
         "mptcp": ("congestion", apsp_kernel(n_sw), "admission"),
         "sim": ("congestion_batch", apsp_kernel(512), "admission"),
+        "events": ("congestion_batch", apsp_kernel(512), "admission"),
+        "families": ("congestion", apsp_kernel(484), "admission"),
         "bisection_wave_on": ("congestion_batch",
                               apsp_kernel(fattree_equipment(k_wave)[
                                   "switches"]), "admission"),

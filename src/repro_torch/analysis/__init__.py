@@ -3,6 +3,7 @@
 from .contracts import (
     ContractViolation,
     check_built_batch,
+    check_carry_migration,
     check_hop_matrix,
     check_path_system,
     check_path_system_batch,
@@ -14,6 +15,7 @@ from .contracts import (
 __all__ = [
     "ContractViolation",
     "check_built_batch",
+    "check_carry_migration",
     "check_hop_matrix",
     "check_path_system",
     "check_path_system_batch",

@@ -15,8 +15,8 @@ turns it on by default via ``conftest.py``).
 
 Port copy of the part of ``repro/analysis/contracts.py`` that the ported
 paths call (numpy only, unchanged): the path-system, hop-matrix, batch,
-built-batch (CT-build) and simulator-state (CT-sim) checks.  The carry
-migration check waits for the live-event module it guards.
+built-batch (CT-build), simulator-state (CT-sim) and live-event carry
+migration checks.
 
 Validators are pure numpy and duck-typed over the dataclasses, so this
 module imports none of the solver modules (they import *us* at module
@@ -34,6 +34,7 @@ from .. import env
 __all__ = [
     "ContractViolation",
     "check_built_batch",
+    "check_carry_migration",
     "check_hop_matrix",
     "check_path_system",
     "check_path_system_batch",
@@ -625,3 +626,98 @@ def check_sim_state(res, *, name: str = "sim_result") -> None:
         _fail(name, f"instance {b}: offered {tot_off[b]} != delivered "
                     f"{tot_del[b]} + blackholed {bh_tot[b]} + in-flight "
                     f"{inflight[b]} (volume conservation broke)")
+
+
+# --------------------------------------------------------------------------- #
+# segmented-scan carry migration (repro_torch.sim.events)
+# --------------------------------------------------------------------------- #
+
+
+def check_carry_migration(
+    row_old, row_new, rem_old, rem_new, age_old, age_new, fid_old, fid_new,
+    hold_old, hold_new, fwd_maps, p_old: int, p_new: int, lag: int,
+    *, name: str = "carry_migration",
+) -> None:
+    """Validate one event-boundary migration of the sim scan carry.
+
+    ``fwd_maps[i]`` maps instance ``i``'s old path rows to new rows (-1 =
+    vanished) — the inverse of the composed ``row_map`` pedigree, so its
+    injectivity here IS the row_map-injectivity contract on migrated
+    carries.  Slot-level checks: empty slots stay empty, surviving flows
+    keep row (through ``fwd``), ``rem``/``age``/``fid`` bit-exactly, and
+    every non-surviving flow is either killed (freed slot, zero state) or
+    re-selected (state preserved, ``hold`` within the detection lag).
+    """
+    row_old = np.asarray(row_old)
+    row_new = np.asarray(row_new)
+    if row_old.shape != row_new.shape:
+        _fail(name, f"slot table shape changed: {row_old.shape} -> "
+                    f"{row_new.shape}")
+    B = row_old.shape[0]
+    if len(fwd_maps) != B:
+        _fail(name, f"fwd_maps has {len(fwd_maps)} entries for B={B}")
+    rem_old, rem_new = np.asarray(rem_old), np.asarray(rem_new)
+    age_old, age_new = np.asarray(age_old), np.asarray(age_new)
+    fid_old, fid_new = np.asarray(fid_old), np.asarray(fid_new)
+    hold_old, hold_new = np.asarray(hold_old), np.asarray(hold_new)
+    for i in range(B):
+        fwd = np.asarray(fwd_maps[i])
+        live = fwd[fwd >= 0]
+        if live.size != len(np.unique(live)):
+            vals, cnts = np.unique(live, return_counts=True)
+            _fail(name, f"instance {i}: fwd map is not injective — new row "
+                        f"{int(vals[np.argmax(cnts > 1)])} claimed by "
+                        "multiple old rows (two flows would share a path "
+                        "row's identity)")
+        if live.size and (live.min() < 0 or live.max() >= p_new):
+            _fail(name, f"instance {i}: fwd map targets outside "
+                        f"[0, {p_new})")
+        empty = row_old[i] == p_old
+        if np.any(row_new[i][empty] != p_new):
+            f = int(np.flatnonzero(empty & (row_new[i] != p_new))[0])
+            _fail(name, f"instance {i} slot {f}: empty slot materialized a "
+                        f"flow (row {int(row_new[i][f])})")
+        act = ~empty
+        if len(fwd):
+            surv = act & (fwd[np.clip(row_old[i], 0, len(fwd) - 1)] >= 0)
+        else:
+            surv = np.zeros_like(act)
+        if np.any(surv):
+            sf = np.flatnonzero(surv)
+            if np.any(row_new[i][sf] != fwd[row_old[i][sf]]):
+                f = int(sf[np.argmax(row_new[i][sf]
+                                     != fwd[row_old[i][sf]])])
+                _fail(name, f"instance {i} slot {f}: surviving flow moved "
+                            f"to row {int(row_new[i][f])} != fwd["
+                            f"{int(row_old[i][f])}]="
+                            f"{int(fwd[row_old[i][f]])}")
+            same = (
+                np.array_equal(rem_new[i][sf], rem_old[i][sf])
+                and np.array_equal(age_new[i][sf], age_old[i][sf])
+                and np.array_equal(fid_new[i][sf], fid_old[i][sf])
+                and np.array_equal(hold_new[i][sf], hold_old[i][sf])
+            )
+            if not same:
+                _fail(name, f"instance {i}: surviving flows must keep "
+                            "rem/age/fid/hold bit-exactly")
+        moved = act & ~surv
+        for f in np.flatnonzero(moved):
+            if row_new[i][f] == p_new:  # killed
+                if rem_new[i][f] != 0.0 or hold_new[i][f] != 0:
+                    _fail(name, f"instance {i} slot {f}: killed flow must "
+                                f"zero its state (rem={rem_new[i][f]}, "
+                                f"hold={int(hold_new[i][f])})")
+            else:  # re-selected
+                if not (0 <= row_new[i][f] < p_new):
+                    _fail(name, f"instance {i} slot {f}: re-selected row "
+                                f"{int(row_new[i][f])} outside [0, {p_new})")
+                if rem_new[i][f] != rem_old[i][f] or \
+                        age_new[i][f] != age_old[i][f] or \
+                        fid_new[i][f] != fid_old[i][f]:
+                    _fail(name, f"instance {i} slot {f}: re-selected flow "
+                                "must preserve rem/age/fid bit-exactly")
+                hi = max(int(lag), int(hold_old[i][f]))
+                if not (0 <= hold_new[i][f] <= hi):
+                    _fail(name, f"instance {i} slot {f}: hold="
+                                f"{int(hold_new[i][f])} outside [0, {hi}] "
+                                f"(lag={int(lag)})")

@@ -1,12 +1,13 @@
 """The port's core library: the Jellyfish paper's computations on torch.
 
 Public API re-exports of the ported modules: topology and the Jellyfish,
-fat-tree and leaf-spine Clos families, traffic, routing (with the
-cross-instance batch build, ECMP path systems and delta re-routing after
-a topology change), the build pipeline, flow, fluid MPTCP, bisection,
-metrics, incremental expansion and failures, and the LEGUP
-expansion-economics arcs.  Not ported yet: ``lp_edge_concurrent_flow`` and
-the other topology families (small-world, degree-diameter, placement).
+fat-tree and leaf-spine Clos families, the paper's comparison families
+(small-world datacenters, degree-diameter graphs, locality-restricted
+Jellyfish with its cable plan), traffic, routing (with the cross-instance
+batch build, ECMP path systems and delta re-routing after a topology
+change), the build pipeline, flow (path and edge LPs, MW), fluid MPTCP,
+bisection, metrics, incremental expansion, failures and repairs, and the
+LEGUP expansion-economics arcs.  Every module of ``repro.core`` is ported.
 """
 
 from .buildpipe import pipeline_enabled, set_build_pipeline, stream_builds
@@ -20,13 +21,16 @@ from .bisection import (
     speculative_max_feasible,
 )
 from .clos import ClosSpec, build_clos
+from .degree_diameter import CATALOG as DD_CATALOG
+from .degree_diameter import degree_diameter_graph
 from .expansion import add_switch, expand_to, remove_switch, rewire_free_ports
-from .failures import fail_links, fail_switches
+from .failures import fail_links, fail_switches, heal_links
 from .fattree import fattree, fattree_equipment
 from .flow import (
     FlowResult,
     PathSystemBatch,
     lp_concurrent_flow,
+    lp_edge_concurrent_flow,
     mw_concurrent_flow,
     mw_concurrent_flow_batch,
     throughput,
@@ -44,6 +48,7 @@ from .metrics import (
     PathStats,
 )
 from .mptcp import MptcpResult, mptcp_throughput
+from .placement import CablePlan, localized_jellyfish, plan_cables
 from .routing import (
     PathSystem,
     build_path_system,
@@ -54,6 +59,7 @@ from .routing import (
     set_apsp_backend,
     update_path_system,
 )
+from .swdc import swdc_hex3d, swdc_ring, swdc_torus2d
 from .topology import (
     Topology,
     adj_to_edges,
@@ -77,6 +83,8 @@ __all__ = [
     "add_switch", "remove_switch", "rewire_free_ports", "expand_to",
     "fattree", "fattree_equipment",
     "ClosSpec", "build_clos",
+    "swdc_ring", "swdc_torus2d", "swdc_hex3d",
+    "DD_CATALOG", "degree_diameter_graph",
     "CostModel", "ExpansionStage", "legup_arc", "jellyfish_arc",
     "apsp_hops", "apsp_hops_blocked", "INT16_INF", "hops_to_int16",
     "hops_to_f32", "path_stats", "PathStats", "bollobas_diameter_bound",
@@ -91,7 +99,9 @@ __all__ = [
     "update_path_system", "set_apsp_backend", "set_admission_backend",
     "pipeline_enabled", "set_build_pipeline", "stream_builds",
     "FlowResult", "PathSystemBatch", "mw_concurrent_flow",
-    "mw_concurrent_flow_batch", "lp_concurrent_flow", "throughput",
+    "mw_concurrent_flow_batch", "lp_concurrent_flow",
+    "lp_edge_concurrent_flow", "throughput",
     "MptcpResult", "mptcp_throughput",
-    "fail_links", "fail_switches",
+    "fail_links", "fail_switches", "heal_links",
+    "CablePlan", "localized_jellyfish", "plan_cables",
 ]

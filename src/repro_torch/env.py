@@ -152,6 +152,24 @@ SPECS: dict[str, EnvSpec] = {
             "Hard cap on the instance batch width of one sim scan.",
         ),
         EnvSpec(
+            "REPRO_SIM_EVENT_LAG",
+            _parse_int(minimum=0, hint=" (blackhole/reconvergence steps "
+                                       "after a path-killing event)"),
+            2,
+            "Default detection + reconvergence lag (in sim steps) during "
+            "which flows whose path died blackhole their traffic "
+            "(see repro_torch.sim.events.simulate_events).",
+        ),
+        EnvSpec(
+            "REPRO_SIM_EVENT_MAX_SEG",
+            _parse_int(minimum=0, hint=" (forced sim segment split length "
+                                       "in steps; 0 disables)"),
+            0,
+            "Force simulate_events to split runs into segments of at most "
+            "this many steps even between events (0 = split only at "
+            "events; the CT-segment parity contract must hold either way).",
+        ),
+        EnvSpec(
             "REPRO_CHECK",
             _parse_flag,
             False,

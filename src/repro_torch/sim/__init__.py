@@ -15,14 +15,21 @@ diurnal load, elephant/mice mixes, permutation churn:
   masks; its max-min waterfilling inner loop uses the MW solver's
   congestion backends' load half (``gather`` fan-in tables, or the
   congestion kernel on CUDA);
+* ``events``    — live fault injection (§4.3): ``simulate_events`` splits
+  the step loop at scheduled failures / repairs / expansions, repairs
+  routing with ``update_path_system``, and migrates the live carry via
+  ``row_map`` — surviving flows keep state bit-exactly, disrupted flows
+  blackhole for a detection lag then re-select;
 * ``workloads`` — scenario generators (steady Poisson, diurnal wave,
-  elephant/mice, permutation churn);
+  elephant/mice, permutation churn, MTBF/MTTR failure schedules, tenant
+  arrival/departure riding ``core.expansion`` +
+  ``routing.update_path_system``);
 * ``telemetry`` — FCT percentiles, per-link utilization, throughput
-  timeseries reductions, and the Table-1 / Fig-9 path-diversity counters.
+  timeseries reductions, per-event retention/disruption summaries, and the
+  Table-1 / Fig-9 path-diversity counters.
 
-Live fault injection (``events``), the tenant-churn and failure-schedule
-generators and ``telemetry.event_summary`` wait for their port.  Import
-validates the ``REPRO_SIM_MAX_STEPS`` / ``REPRO_SIM_MAX_BATCH`` caps
+Import validates the ``REPRO_SIM_MAX_STEPS`` / ``REPRO_SIM_MAX_BATCH`` caps
+and the ``REPRO_SIM_EVENT_LAG`` / ``REPRO_SIM_EVENT_MAX_SEG`` defaults
 (through ``repro_torch.env``).
 """
 
@@ -43,7 +50,15 @@ from .engine import (
     simulate,
     waterfill_rates,
 )
+from .events import (
+    EVENT_KINDS,
+    Event,
+    EventSimResult,
+    simulate_events,
+    validate_schedule,
+)
 from .telemetry import (
+    event_summary,
     fct_percentiles,
     link_utilization,
     path_diversity,
@@ -57,10 +72,20 @@ from .workloads import (
     diurnal_wave,
     elephant_mice,
     permutation_churn,
+    poisson_failure_schedule,
+    run_tenant_churn,
     steady_poisson,
+    tenant_churn_segments,
 )
 
 __all__ = [
+    "Event",
+    "EVENT_KINDS",
+    "EventSimResult",
+    "event_summary",
+    "poisson_failure_schedule",
+    "simulate_events",
+    "validate_schedule",
     "ecmp_path_system",
     "ecmp_group_sizes",
     "fattree_ecmp_check",
@@ -79,6 +104,8 @@ __all__ = [
     "diurnal_wave",
     "elephant_mice",
     "permutation_churn",
+    "tenant_churn_segments",
+    "run_tenant_churn",
     "fct_percentiles",
     "link_utilization",
     "path_diversity",

@@ -465,6 +465,76 @@ def _size_params(workload) -> np.ndarray:
     )
 
 
+def _host(x: torch.Tensor, dtype=None) -> np.ndarray:
+    """A device tensor as a host numpy array (cast to ``dtype`` if given)."""
+    a = x.cpu().numpy()
+    return a if dtype is None else a.astype(dtype)
+
+
+def _sim_result(carry: dict, inp: dict, cfg: SimConfig, n_steps: int,
+                policy: str, **per_run) -> SimResult:
+    """A ``SimResult`` from a finished carry; ``per_run`` holds the fields
+    a caller assembles itself (the per-step series, the per-commodity
+    volumes and the demands)."""
+    return SimResult(
+        fct_hist=_host(carry["fct_hist"])[:, : cfg.nbins],
+        fct_sum=_host(carry["fct_sum"]),
+        fct_count=_host(carry["fct_cnt"], np.int32),
+        util_sum=_host(carry["util_sum"]),
+        drops=_host(carry["drops"], np.int32),
+        admitted=_host(carry["admitted"], np.int32),
+        blackholed_total=_host(carry["bh_sum"]),
+        inflight=_host(carry["rem"], np.float64).sum(axis=1),
+        slot_valid=_host(inp["tabs"].sval),
+        n_steps=n_steps,
+        dt=cfg.dt,
+        policy=policy,
+        backend=inp["backend"],
+        **per_run,
+    )
+
+
+def _batch_inputs(batch: PathSystemBatch, policy: str, cfg: SimConfig,
+                  backend: str, dev: torch.device) -> dict:
+    """Per-batch setup shared by ``simulate`` and the segmented driver
+    (``sim.events``), the counterpart of the reference's ``_scan_inputs``:
+    the batch-width and admission-width checks, the commodity and owner
+    tables, the backend resolution and the waterfill's device tables —
+    everything the step loop needs that depends only on the batch."""
+    B, P, S = batch.n_batch, batch.p_max, batch.s_max
+    if B > SIM_MAX_BATCH:
+        raise ValueError(
+            f"batch has {B} instances > REPRO_SIM_MAX_BATCH={SIM_MAX_BATCH}; "
+            "raise the env cap or split the batch"
+        )
+    K = batch.demands.shape[1] - (0 if batch.shared else 1)
+    rows_tab, rows_cnt, comm_src, comm_dst = _commodity_tables(batch, K)
+    D = rows_tab.shape[-1]
+    w_new = cfg.max_arrivals * D if policy == "mptcp" else cfg.max_arrivals
+    if w_new > cfg.max_flows:
+        raise ValueError(
+            f"policy {policy!r} can admit {w_new} flows per step but "
+            f"max_flows={cfg.max_flows}; raise max_flows or lower "
+            "max_arrivals"
+        )
+    backend = _resolve_backend(backend, P, S, dev, n_batch=max(B, 2))
+
+    def dev_i64(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+
+    return {
+        "n_comm": K,
+        "p_max": P,
+        "backend": backend,
+        "tabs": _Tables(batch, backend, dev),
+        "owner_pad": dev_i64(_owner_padded(batch, K)),
+        "rows_tab": dev_i64(rows_tab),
+        "rows_cnt": dev_i64(rows_cnt),
+        "comm_src": dev_i64(comm_src),
+        "comm_dst": dev_i64(comm_dst),
+    }
+
+
 # --------------------------------------------------------------------------- #
 # arrivals
 # --------------------------------------------------------------------------- #
@@ -565,11 +635,14 @@ def _init_carry(n_batch: int, n_flows: int, p_max: int, s_max: int,
     }
 
 
-def _run_steps(c: dict, tabs: _Tables, owner_pad, rows_tab, rows_cnt,
-               comm_src, comm_dst, logits_epochs, eos, stream, size_params,
-               cfg: SimConfig, policy: str, P: int):
-    """Advance the carry ``c`` through every step of ``stream``; returns
-    the per-step (throughput, active, blackholed), each (T, B)."""
+def _run_steps(c: dict, inp: dict, logits_epochs, eos, stream, size_params,
+               cfg: SimConfig, policy: str):
+    """Advance the carry ``c`` through every step of ``stream`` over the
+    batch tables ``inp`` (``_batch_inputs``); returns the per-step
+    (throughput, active, blackholed), each (T, B)."""
+    tabs, owner_pad, P = inp["tabs"], inp["owner_pad"], inp["p_max"]
+    rows_tab, rows_cnt = inp["rows_tab"], inp["rows_cnt"]
+    comm_src, comm_dst = inp["comm_src"], inp["comm_dst"]
     n_poisson, comm_all, eleph_all = stream
     dev = tabs.cap.device
     T = n_poisson.shape[0]
@@ -765,24 +838,8 @@ def simulate(
             f"workload has {T} steps > REPRO_SIM_MAX_STEPS={SIM_MAX_STEPS}; "
             "raise the env cap or split the horizon"
         )
-    B, P, S = batch.n_batch, batch.p_max, batch.s_max
-    if B > SIM_MAX_BATCH:
-        raise ValueError(
-            f"batch has {B} instances > REPRO_SIM_MAX_BATCH={SIM_MAX_BATCH}; "
-            "raise the env cap or split the batch"
-        )
-    K = batch.demands.shape[1] - (0 if batch.shared else 1)
-    rows_tab, rows_cnt, comm_src, comm_dst = _commodity_tables(batch, K)
-    D = rows_tab.shape[-1]
-    w_new = cfg.max_arrivals * D if policy == "mptcp" else cfg.max_arrivals
-    if w_new > cfg.max_flows:
-        raise ValueError(
-            f"policy {policy!r} can admit {w_new} flows per step but "
-            f"max_flows={cfg.max_flows}; raise max_flows or lower "
-            "max_arrivals"
-        )
-    backend = _resolve_backend(backend, P, S, dev, n_batch=max(B, 2))
-    tabs = _Tables(batch, backend, dev)
+    inp = _batch_inputs(batch, policy, cfg, backend, dev)
+    B, K = batch.n_batch, inp["n_comm"]
     logits, eos = _epoch_logits(workload, batch, K, T)
     size_params = _size_params(workload)
     if arrivals is None:
@@ -791,42 +848,16 @@ def simulate(
     else:
         stream = _check_arrivals(arrivals, T, B, cfg.max_arrivals, K, dev)
 
-    def dev_i64(x):
-        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
-
-    carry = _init_carry(B, cfg.max_flows, P, S, K, cfg.nbins, dev)
-    thr, nact, bh = _run_steps(
-        carry, tabs, dev_i64(_owner_padded(batch, K)), dev_i64(rows_tab),
-        dev_i64(rows_cnt), dev_i64(comm_src), dev_i64(comm_dst),
-        torch.as_tensor(logits, device=dev), eos, stream, size_params, cfg,
-        policy, P,
-    )
-
-    def host(x, dtype=None):
-        a = x.cpu().numpy()
-        return a if dtype is None else a.astype(dtype)
-
-    result = SimResult(
-        throughput=host(thr),
-        active=host(nact, np.int32),
-        fct_hist=host(carry["fct_hist"])[:, : cfg.nbins],
-        fct_sum=host(carry["fct_sum"]),
-        fct_count=host(carry["fct_cnt"], np.int32),
-        comm_delivered=host(carry["comm_del"]),
-        comm_offered=host(carry["comm_off"]),
-        util_sum=host(carry["util_sum"]),
-        drops=host(carry["drops"], np.int32),
-        admitted=host(carry["admitted"], np.int32),
-        blackholed=host(bh),
-        blackholed_total=host(carry["bh_sum"]),
-        inflight=host(carry["rem"], np.float64).sum(axis=1),
-        demands=np.asarray(batch.demands),
-        slot_valid=host(tabs.sval),
-        n_steps=T,
-        dt=cfg.dt,
-        policy=policy,
-        backend=backend,
-    )
+    carry = _init_carry(B, cfg.max_flows, batch.p_max, batch.s_max, K,
+                        cfg.nbins, dev)
+    thr, nact, bh = _run_steps(carry, inp, torch.as_tensor(logits, device=dev),
+                               eos, stream, size_params, cfg, policy)
+    result = _sim_result(
+        carry, inp, cfg, T, policy, throughput=_host(thr),
+        active=_host(nact, np.int32), blackholed=_host(bh),
+        comm_delivered=_host(carry["comm_del"]),
+        comm_offered=_host(carry["comm_off"]),
+        demands=np.asarray(batch.demands))
     if checks_enabled():
         check_sim_state(result)
     return result

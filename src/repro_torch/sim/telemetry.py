@@ -1,7 +1,6 @@
 """Reductions over sim accumulators + the Table-1 / Fig-9 diversity counters.
 
-The port of ``repro/sim/telemetry.py`` (numpy, unchanged), minus
-``event_summary``, which waits for the live-event module.  Maps the
+The port of ``repro/sim/telemetry.py`` (numpy, unchanged).  Maps the
 paper's §3 evidence onto code:
 
 * Table 1 (path diversity): ``path_diversity`` counts, for every physical
@@ -24,6 +23,7 @@ from ..core.routing import PathSystem
 from .engine import SimResult
 
 __all__ = [
+    "event_summary",
     "fct_percentiles",
     "link_utilization",
     "path_diversity",
@@ -128,6 +128,75 @@ def link_utilization(res: SimResult) -> dict:
         maxes.append(float(u.max()))
         hot.append(float((u > 0.9).mean()))
     return {"mean": means, "max": maxes, "frac_above_90": hot}
+
+
+def event_summary(ev, window: int = 16) -> list[dict]:
+    """Per-event impact metrics from an ``events.EventSimResult``.
+
+    For each event boundary: **throughput retention** — mean delivered
+    volume per step over the ``window`` steps after the event divided by
+    the mean over the ``window`` steps before it (per instance; NaN when
+    the pre-window delivered nothing); **blackholed bytes** attributed to
+    the event (the blackhole accumulator's growth from this boundary to the
+    next, including flows killed outright at the boundary); the migration
+    counts recorded at the boundary; and **FCT degradation** — the mean FCT
+    of flows completed after the event versus before it (NaN where either
+    side completed none).
+    """
+    res = ev.result
+    thr = res.throughput  # (T, B)
+    B = thr.shape[1]
+    out = []
+    for n, rec in enumerate(ev.events):
+        t = int(rec["step"])
+        t_next = (
+            int(ev.events[n + 1]["step"]) if n + 1 < len(ev.events)
+            else res.n_steps
+        )
+        pre = thr[max(t - window, 0): t]
+        post = thr[t: min(t + window, res.n_steps)]
+        pre_m = pre.mean(axis=0) if len(pre) else np.zeros(B)
+        post_m = post.mean(axis=0) if len(post) else np.zeros(B)
+        retention = np.where(pre_m > 0, post_m / np.maximum(pre_m, 1e-12),
+                             np.nan)
+        # blackholed volume while this event's disruption was the latest one
+        bh_end = (
+            ev.events[n + 1]["blackholed_before"]
+            if n + 1 < len(ev.events)
+            else res.blackholed_total
+        )
+        bh_bytes = np.asarray(bh_end, np.float64) - np.asarray(
+            rec["blackholed_before"], np.float64
+        )
+        # mean FCT before vs after the boundary (cumulative accumulators)
+        s0 = np.asarray(rec["fct_sum_before"], np.float64)
+        c0 = np.asarray(rec["fct_count_before"], np.float64)
+        s1 = np.asarray(res.fct_sum, np.float64)
+        c1 = np.asarray(res.fct_count, np.float64)
+        pre_fct = np.where(c0 > 0, s0 / np.maximum(c0, 1), np.nan)
+        post_fct = np.where(
+            c1 > c0, (s1 - s0) / np.maximum(c1 - c0, 1), np.nan
+        )
+        out.append(
+            {
+                "step": t,
+                "until": t_next,
+                "kinds": list(rec["kinds"]),
+                "tags": list(rec["tags"]),
+                "throughput_retention": retention,
+                "blackholed_bytes": bh_bytes,
+                "survived": np.asarray(rec["survived"]),
+                "disrupted": np.asarray(rec["disrupted"]),
+                "reselected": np.asarray(rec["reselected"]),
+                "killed": np.asarray(rec["killed"]),
+                "fct_mean_before": pre_fct,
+                "fct_mean_after": post_fct,
+                "fct_degradation": np.where(
+                    pre_fct > 0, post_fct / pre_fct, np.nan
+                ),
+            }
+        )
+    return out
 
 
 def path_diversity(ps: PathSystem) -> dict:

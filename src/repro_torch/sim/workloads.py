@@ -11,10 +11,16 @@ arrival rate, the flow-size mixture, and (optionally) a sequence of demand
 * ``permutation_churn``  — the paper's random-permutation traffic re-drawn
   every epoch: each topology routes the UNION of its epochs' commodity
   sets once, and the epochs re-weight demands over that union (so the run
-  never re-routes mid-flight).
-
-The tenant-churn and failure-schedule generators wait for the live-event
-module (``sim/events.py``) they feed.
+  never re-routes mid-flight);
+* ``tenant_churn_segments`` / ``run_tenant_churn`` — tenant arrivals grow
+  the fabric through ``core.expansion`` with path systems delta-routed by
+  ``routing.update_path_system`` (the §4.2 machinery), tenant departures
+  zero a random slice of demand; each event is one sim segment batched
+  across topology seeds.
+* ``poisson_failure_schedule`` — an MTBF-driven failure (and optional
+  MTTR-driven repair) event schedule for ``sim.events.simulate_events``:
+  link failures arrive as a Poisson process, each optionally healed an
+  exponential repair time later.
 """
 
 from __future__ import annotations
@@ -25,10 +31,18 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core.expansion import expand_to
 from ..core.flow import PathSystemBatch
-from ..core.routing import build_path_system
+from ..core.routing import build_path_system, update_path_system
 from ..core.topology import Topology
-from ..core.traffic import random_server_permutation, union_commodities
+from ..core.traffic import (
+    extend_server_permutation,
+    permutation_commodities,
+    random_server_permutation,
+    union_commodities,
+)
+from .engine import SimConfig, SimResult, simulate
+from .events import Event
 
 __all__ = [
     "Workload",
@@ -36,6 +50,9 @@ __all__ = [
     "diurnal_wave",
     "elephant_mice",
     "permutation_churn",
+    "poisson_failure_schedule",
+    "tenant_churn_segments",
+    "run_tenant_churn",
 ]
 
 
@@ -153,3 +170,158 @@ def permutation_churn(
                                 steps_per_epoch),
     )
     return batch, wl
+
+
+def tenant_churn_segments(
+    base_tops: Sequence[Topology],
+    n_events: int,
+    grow: int = 1,
+    depart_frac: float = 0.25,
+    k: int = 8,
+    max_slack: int = 3,
+    seed: int = 0,
+    device: "str | torch.device" = "cuda",
+):
+    """Tenant arrival/departure event chain riding the §4.2 delta machinery.
+
+    Even events are tenant ARRIVALS: every instance grows by ``grow``
+    switches (``core.expansion.expand_to``), its server permutation extends
+    incrementally, and its path system is DELTA-routed with
+    ``routing.update_path_system`` on ``device`` (exact parity with a
+    rebuild).  Odd events are tenant DEPARTURES: a random ``depart_frac``
+    of commodities' demand drops to zero — routing untouched, only the
+    sampler weights move.
+
+    Returns a list of segments ``{"systems": [ps per instance],
+    "demands": (B, K_i) weights}`` consumed by ``run_tenant_churn``.
+    Flows do not persist across segments (tenant events are rare next to
+    flow lifetimes; each segment reaches its own steady state).
+    """
+    rng = np.random.default_rng(seed)
+    tops = [t.copy() for t in base_tops]
+    perms = [random_server_permutation(t.n_servers, rng) for t in tops]
+    comms = [permutation_commodities(t, p) for t, p in zip(tops, perms)]
+    systems = [
+        build_path_system(t, c, k=k, max_slack=max_slack, device=device)
+        for t, c in zip(tops, comms)
+    ]
+    scale = [np.ones(ps.n_commodities) for ps in systems]
+    segments = [{"systems": list(systems), "demands": list(scale)}]
+    for ev in range(n_events):
+        if ev % 2 == 0:  # tenant arrival: expansion + delta routing
+            for i, top in enumerate(tops):
+                tn = expand_to(top, top.n_switches + grow, seed=rng)
+                perms[i] = extend_server_permutation(
+                    perms[i], tn.n_servers, seed=rng
+                )
+                comms[i] = permutation_commodities(tn, perms[i])
+                systems[i] = update_path_system(
+                    systems[i], top, tn, comms[i], device=device
+                )
+                tops[i] = tn
+                scale[i] = np.ones(systems[i].n_commodities)
+        else:  # tenant departure: a slice of demand goes away
+            for i, ps in enumerate(systems):
+                mask = rng.random(ps.n_commodities) >= depart_frac
+                scale[i] = scale[i] * mask
+        segments.append(
+            {"systems": list(systems), "demands": [s.copy() for s in scale]}
+        )
+    return segments
+
+
+def poisson_failure_schedule(
+    n_steps: int,
+    mtbf_steps: float,
+    mttr_steps: float | None = None,
+    n_links: int = 1,
+    start_step: int = 1,
+    seed: int = 0,
+) -> list[Event]:
+    """MTBF-driven random failure process for ``simulate_events``.
+
+    Link-failure events arrive as a Poisson process: the first failure
+    lands at ``start_step`` and subsequent inter-arrival gaps are
+    ``Exp(mtbf_steps)``, rounded up to whole steps.  Each failure removes
+    ``n_links`` uniform-random links (a fresh producer seed per event,
+    drawn from ``seed``).  When ``mttr_steps`` is set, each failure is
+    paired with a ``heal_links`` event an ``Exp(mttr_steps)`` repair time
+    later (dropped when the repair falls past the horizon), so the schedule
+    models the paper's §4.3 fail/repair churn.  Deterministic for a fixed
+    ``seed``; the returned list is stably sorted by step.
+    """
+    if mtbf_steps <= 0:
+        raise ValueError(f"mtbf_steps must be > 0, got {mtbf_steps}")
+    if mttr_steps is not None and mttr_steps <= 0:
+        raise ValueError(f"mttr_steps must be > 0, got {mttr_steps}")
+    rng = np.random.default_rng(seed)
+    events: list[Event] = []
+    t = float(start_step)
+    i = 0
+    while True:
+        t += float(rng.exponential(mtbf_steps)) if i else 0.0
+        step = int(np.ceil(t))
+        if step >= n_steps:
+            break
+        tag = f"f{i}"
+        events.append(
+            Event(
+                step=step,
+                kind="fail_links",
+                n_links=n_links,
+                seed=int(rng.integers(2**31 - 1)),
+                tag=tag,
+            )
+        )
+        if mttr_steps is not None:
+            heal = int(np.ceil(t + float(rng.exponential(mttr_steps))))
+            heal = max(heal, step + 1)
+            if heal < n_steps:
+                events.append(
+                    Event(step=heal, kind="heal_links", heal_of=tag)
+                )
+        i += 1
+    order = np.argsort([e.step for e in events], kind="stable")
+    return [events[j] for j in order]
+
+
+def run_tenant_churn(
+    segments,
+    steps_per_segment: int,
+    rate: float,
+    policy: str = "ksp_lc",
+    config: SimConfig | None = None,
+    size: float = 24.0,
+    seed: int = 0,
+    device: "str | torch.device" = "cuda",
+    arrivals: Sequence | None = None,
+) -> list[SimResult]:
+    """Simulate each tenant-churn segment (instances batched per segment)
+    on ``device``.  ``arrivals`` optionally holds one pre-drawn stream per
+    segment (``simulate``'s ``arrivals``); without it segment ``si`` draws
+    from ``seed + si``."""
+    if arrivals is not None and len(arrivals) != len(segments):
+        raise ValueError(
+            f"{len(segments)} segments but {len(arrivals)} arrival streams"
+        )
+    out = []
+    for si, seg in enumerate(segments):
+        batch = PathSystemBatch.from_systems(seg["systems"])
+        K = batch.demands.shape[1] - 1
+        de = np.zeros((1, batch.n_batch, K), np.float32)
+        for i, (ps, w) in enumerate(zip(seg["systems"], seg["demands"])):
+            dem = np.asarray(ps.demands) * np.asarray(w)
+            de[0, i, : len(dem)] = dem
+        wl = Workload(
+            rate=np.full(steps_per_segment, rate, np.float32),
+            size_mice=size,
+            size_elephant=size,
+            demand_epochs=de,
+            epoch_of_step=np.zeros(steps_per_segment, np.int32),
+        )
+        out.append(
+            simulate(batch, wl, policy=policy, config=config, seed=seed + si,
+                     device=device,
+                     arrivals=None if arrivals is None else arrivals[si])
+        )
+    return out

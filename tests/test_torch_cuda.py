@@ -456,3 +456,86 @@ def test_build_batch_and_pipeline_on_card(dev):
     # launches from the pipeline's worker thread are all counted
     assert counts[True] == counts[False]
     assert counts[True]["admission"] > 0 and counts[True]["minplus_hops"] > 0
+
+
+_EVENT_FIELDS = ("throughput", "active", "fct_hist", "fct_sum", "fct_count",
+                 "comm_delivered", "comm_offered", "util_sum", "drops",
+                 "admitted", "blackholed", "blackholed_total", "inflight")
+
+
+def _event_instances():
+    tops = [jellyfish(60, 10, 6, seed=s) for s in range(3)]
+    comms = [random_permutation_traffic(t, seed=s + 10)
+             for s, t in enumerate(tops)]
+    return tops, comms
+
+
+@pytest.mark.parametrize("policy", ["ksp_lc", "ecmp"])
+def test_simulate_events_empty_schedule_on_card(dev, policy):
+    """CT-segment on the card: an empty schedule, whole or split by
+    ``max_seg``, equals ``simulate`` on the dense kernel bit for bit."""
+    from repro_torch.sim import (
+        SimConfig,
+        simulate,
+        simulate_events,
+        steady_poisson,
+    )
+
+    tops, comms = _event_instances()
+    systems = _sim_systems(dev).systems
+    wl = steady_poisson(40, rate=6.0, size=12.0)
+    cfg = SimConfig(max_flows=512, max_arrivals=8, wf_iters=6)
+    base = simulate(systems, wl, policy=policy, config=cfg, seed=3,
+                    device=dev)
+    assert base.backend == "dense"
+    for max_seg in (0, 15):
+        before = kernels.launch_counts()["congestion_batch"]
+        ev = simulate_events(tops, comms, [], wl, systems=systems,
+                             policy=policy, config=cfg, seed=3,
+                             max_seg=max_seg, device=dev)
+        assert kernels.launch_counts()["congestion_batch"] > before
+        assert ev.result.backend == "dense"
+        for f in _EVENT_FIELDS:
+            assert np.array_equal(getattr(ev.result, f),
+                                  getattr(base, f)), (max_seg, f)
+
+
+def test_simulate_events_fail_heal_dense_vs_gather_on_card(dev):
+    """A fail / heal run on the card, dense against gather from one stream
+    of every segment: the same migrations (``ecmp`` reselects by hash,
+    not by load), every accumulator within 1e-3 of its largest magnitude
+    (the dense product's rounding; ``chip_smoke.py``'s bound)."""
+    from repro_torch.analysis.contracts import check_sim_state
+    from repro_torch.sim import (
+        Event,
+        SimConfig,
+        draw_arrivals,
+        simulate_events,
+        steady_poisson,
+    )
+
+    tops, comms = _event_instances()
+    wl = steady_poisson(36, rate=6.0, size=12.0)
+    cfg = SimConfig(max_flows=512, max_arrivals=8, wf_iters=6)
+    sched = [Event(step=10, kind="fail_links", n_links=6, seed=2, tag="f"),
+             Event(step=22, kind="heal_links", heal_of="f")]
+
+    def arrivals(ts, logits, eos):
+        return draw_arrivals(4, ts, wl.rate[ts], logits, eos, 0.0,
+                             cfg.max_arrivals, device="cpu")
+
+    runs = {be: simulate_events(tops, comms, sched, wl, policy="ecmp",
+                                config=cfg, seed=4, backend=be, device=dev,
+                                arrivals=arrivals)
+            for be in ("dense", "gather")}
+    d, g = runs["dense"], runs["gather"]
+    assert d.result.backend == "dense" and g.result.backend == "gather"
+    check_sim_state(d.result)
+    assert len(d.events) == 2 and d.result.blackholed_total.sum() > 0
+    for rd, rg in zip(d.events, g.events):
+        for f in ("survived", "reselected", "killed"):
+            assert np.array_equal(rd[f], rg[f]), f
+    for f in _EVENT_FIELDS:
+        x = np.asarray(getattr(d.result, f), np.float64)
+        y = np.asarray(getattr(g.result, f), np.float64)
+        assert np.abs(x - y).max() <= 1e-3 * max(np.abs(y).max(), 1.0), f

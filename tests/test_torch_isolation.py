@@ -1,16 +1,21 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``.
 
 A fresh interpreter imports the package and every submodule and then finds
-no ``jax`` and no ``repro`` module loaded; an AST scan of the sources finds
-no ``import jax``, ``import repro`` or ``from repro`` (relative imports stay
-inside the package).
+no ``jax`` and no ``repro`` module loaded; an AST scan of the sources (and
+of ``chip_smoke.py``) finds no ``import jax``, ``import repro`` or ``from
+repro`` (relative imports stay inside the package).  The entry points run
+on the card unless the caller asks for the CPU.
 """
 
 import ast
+import importlib
+import inspect
 import os
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -45,21 +50,41 @@ def test_import_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def _absolute_imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
 def test_sources_never_import_jax_or_reference():
-    offenders = []
-    for path in sorted(PKG.rglob("*.py")):
-        tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "repro"):
-                    offenders.append(f"{path.relative_to(ROOT)}:{node.lineno} "
-                                     f"imports {name}")
+    offenders = [
+        f"{path.relative_to(ROOT)}:{line} imports {name}"
+        for path in [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"]
+        for line, name in _absolute_imports(path)
+        if name.split(".")[0] in ("jax", "jaxlib", "repro")
+    ]
     assert offenders == []
     assert len(_modules()) >= 20
+
+
+def test_event_and_family_modules_are_covered():
+    mods = set(_modules())
+    for m in ("repro_torch.sim.events", "repro_torch.core.swdc",
+              "repro_torch.core.degree_diameter", "repro_torch.core.placement"):
+        assert m in mods
+
+
+@pytest.mark.parametrize("entry", [
+    "repro_torch.sim.events:simulate_events",
+    "repro_torch.sim.workloads:run_tenant_churn",
+    "repro_torch.sim.workloads:tenant_churn_segments",
+    "repro_torch.sim.engine:simulate",
+])
+def test_entry_points_default_to_the_card(entry):
+    mod, name = entry.split(":")
+    fn = getattr(importlib.import_module(mod), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -16,7 +16,9 @@ Tolerances, and why each holds:
   seed), t)``): every accumulator — throughput, active flows, admitted,
   drops, FCT histogram/sum/count, per-commodity offered and delivered
   volume, link utilization, in-flight volume — equal to the reference's
-  bit for bit, for all three policies, under ``gather``.  The offered and
+  bit for bit, for all three policies, under ``gather``, on steady,
+  elephant/mice, diurnal and multi-epoch permutation-churn workloads and
+  with the ``exact`` freeze rule over a 32-slot table.  The offered and
   delivered volumes sum each step's contributions in ascending slot order
   (``_ordered_scatter_add``), as XLA's CPU scatter-add does.  The FCT bins
   use the exact ``floor(log2(age))``; XLA:CPU's ``log2`` rounds 8192 and
@@ -27,6 +29,7 @@ Tolerances, and why each holds:
 """
 
 import dataclasses
+import functools
 import os
 import pathlib
 import subprocess
@@ -282,24 +285,52 @@ SIM_FIELDS = ("throughput", "active", "fct_hist", "fct_sum", "fct_count",
               "slot_valid", "demands")
 
 
-@pytest.mark.parametrize("policy,wl_kind", [("ecmp", "steady"),
-                                            ("ksp_lc", "elephant"),
-                                            ("mptcp", "steady")])
-def test_simulate_matches_reference_from_jax_stream(policy, wl_kind):
-    ref_sys = [r for r, _ in TINY]
+def _sim_case(wl_kind):
+    """(reference systems, port systems, reference workload, config
+    keywords) of one parity case."""
+    ref_sys, port_sys = [r for r, _ in TINY], [p for _, p in TINY]
+    cfg = dict(max_flows=512, max_arrivals=8, wf_iters=8)
     if wl_kind == "steady":
         rwl = RS.steady_poisson(36, rate=5.0, size=12.0)
-    else:
+    elif wl_kind == "elephant":
         rwl = RS.elephant_mice(36, rate=4.0, p_elephant=0.2, size_mice=6.0,
                                size_elephant=60.0)
+    elif wl_kind == "diurnal":
+        rwl = RS.diurnal_wave(40, 6.0, amplitude=0.7, period=20, size=10.0)
+    elif wl_kind == "exact32":  # few slots: the slot table fills and drops
+        rwl = RS.steady_poisson(36, rate=6.0, size=12.0)
+        cfg.update(max_flows=32, wf_rule="exact")
+    else:  # churn: three demand epochs over each instance's union
+        ref_sys, port_sys, rwl = _churn_systems()
+    return ref_sys, port_sys, rwl, cfg
+
+
+@functools.lru_cache(maxsize=1)
+def _churn_systems():
+    kw = dict(n_epochs=3, steps_per_epoch=12, rate=5.0, seed=2, size=12.0)
+    ref_sys, rwl = RS.permutation_churn(
+        [R.jellyfish(40, 10, 6, seed=s) for s in (0, 1)], **kw)
+    port_sys, _ = PS.permutation_churn(
+        [T.jellyfish(40, 10, 6, seed=s) for s in (0, 1)], device=CPU, **kw)
+    return ref_sys, port_sys, rwl
+
+
+@pytest.mark.parametrize("policy,wl_kind", [
+    ("ecmp", "steady"), ("ksp_lc", "elephant"), ("mptcp", "steady"),
+    ("ecmp", "churn"), ("ksp_lc", "churn"), ("mptcp", "churn"),
+    ("ksp_lc", "diurnal"), ("mptcp", "diurnal"),
+    ("ecmp", "exact32"), ("ksp_lc", "exact32")])
+def test_simulate_matches_reference_from_jax_stream(policy, wl_kind):
+    ref_sys, port_sys, rwl, cfg = _sim_case(wl_kind)
     pwl = PS.Workload(**dataclasses.asdict(rwl))
-    rcfg = RS.SimConfig(max_flows=512, max_arrivals=8, wf_iters=8)
-    pcfg = PS.SimConfig(max_flows=512, max_arrivals=8, wf_iters=8)
+    rcfg, pcfg = RS.SimConfig(**cfg), PS.SimConfig(**cfg)
     want = RS.simulate(ref_sys, rwl, policy=policy, config=rcfg, seed=1)
     stream = _jax_stream(1, rwl, ref_engine._as_batch(ref_sys), rcfg)
-    got = PS.simulate([p for _, p in TINY], pwl, policy=policy, config=pcfg,
+    got = PS.simulate(port_sys, pwl, policy=policy, config=pcfg,
                       seed=1, backend="gather", device=CPU, arrivals=stream)
     assert got.backend == "gather" and want.admitted.sum() > 0
+    if wl_kind == "exact32":
+        assert want.drops.sum() > 0
     for f in SIM_FIELDS:
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
                                       err_msg=f)
