@@ -6,8 +6,10 @@
 Runs the paper's Fig 1c capacity path, the spectral lambda_2 path, the
 incremental-expansion path and the §5 routing paths (batched path-system
 builds with the build pipeline, ECMP, fluid MPTCP, the flow-level
-simulator with live topology events) and the paper's other topology
-families at full width on the card and prints one JSON line per phase:
+simulator with live topology events), the paper's other topology
+families and the inter-pod fabric layer (ring embedding, all-to-all
+scoring, elastic delta routing) at full width on the card and prints one
+JSON line per phase:
 
 1. ``build``   compile the hand-written CUDA kernels from ``csrc/`` (one
                ``nvcc`` per source, started together).
@@ -122,12 +124,28 @@ families at full width on the card and prints one JSON line per phase:
                each alpha by ``capacity.alpha_of`` with MW on ``dense`` (the
                single congestion kernel), Fig 3's also on ``gather`` within
                5e-3; the Jellyfish / best-SWDC ratio (printed, not checked).
+   ``fabric``  ``benchmarks/fabric_scale.py``'s configuration through the
+               fabric layer (``repro_torch.fabric``), timed with
+               ``obs.Timer(device=...)``: ring embeddings of Jellyfish
+               fabrics (degree 8) at 16, 64, 256 and 1024 pods, each also
+               after 10 % of its links fail, and of fat-trees up to 256
+               pods, each equal to the CPU's (host BFS, numpy admission);
+               20 48-port switches joining a 100-switch 24-port Jellyfish
+               (mean path before and after, ``validate``); at 1024 pods the
+               elastic chain ``path_system`` -> ``fail(0.1)`` ->
+               ``expand(64)`` -> ``remove(7)``, each delta equal to a
+               rebuild on the card field by field; ``a2a_efficiency`` at 256
+               and 1024 pods equal to the CPU's, the 1024-pod runs split
+               into hop matrix, enumeration and the Python usage loop.
+               Under 60 s.
+   ``obs``     ``python -m repro_torch.obs smoke --device cuda`` in-process:
+               a traced MW solve bit-identical to an untraced one.
 6. ``kernels`` per kernel: launches on each path (``apsp``, ``apsp_f32``,
                ``spectral``, the probe,
                ``alpha_of``, ``expansion``, ``build_batch``,
                ``probe_sequential``, ``ecmp``, ``mptcp``, ``sim``, the
                bisection and both wave bisections, ``events``,
-               ``families``, each run with
+               ``families``, ``fabric``, each run with
                the counts set to 0 just before it and read just after; each
                kernel must be launched by the paths that use it), largest
                difference from the plain version, and the times of phase 2
@@ -1012,6 +1030,206 @@ def families_phase(run: PathRun, side: int = 22, sps: int = 2,
             "launches": run.launches["families"]}
 
 
+#: ``benchmarks/fabric_scale.py``'s configuration: Jellyfish fabrics of
+#: degree 8 at these pod counts (each also after 10 % of its links fail),
+#: fat-trees up to 256 pods, 20 48-port switches joining a 100-switch
+#: 24-port Jellyfish; the elastic delta chain and the all-to-all at these
+#: pod counts.
+FABRIC_PODS = (16, 64, 256, 1024)
+FABRIC_FT_MAX = 256
+FABRIC_HETERO = (100, 24, 16, 20)
+FABRIC_CHAIN_PODS = 1024
+FABRIC_A2A_PODS = (256, 1024)
+#: Seconds the ``fabric`` phase must stay within.
+FABRIC_BUDGET_S = 60.0
+
+
+def same_ring(a, b, what: str) -> None:
+    """Two ring embeddings are equal: order, hop paths, stretch and
+    congestion."""
+    import numpy as np
+
+    check(np.array_equal(a.order, b.order), f"{what}: ring order differs")
+    check(a.hop_paths == b.hop_paths, f"{what}: ring hop paths differ")
+    check((a.stretch, a.congestion, a.efficiency)
+          == (b.stretch, b.congestion, b.efficiency),
+          f"{what}: stretch/congestion differ")
+
+
+def fabric_phase(run: PathRun, pods=FABRIC_PODS, ft_max: int = FABRIC_FT_MAX,
+                 hetero=FABRIC_HETERO, chain_pods: int = FABRIC_CHAIN_PODS,
+                 a2a_pods=FABRIC_A2A_PODS, grow: int = 64) -> dict:
+    """``benchmarks/fabric_scale.py``'s configuration through the port's
+    fabric layer, timed with ``obs.bench.Timer(device=...)``.
+
+    Rings (Jellyfish of degree 8, then 10 % of its links failed; fat-trees
+    up to ``ft_max`` pods), the elastic delta chain (``path_system``, then
+    ``fail(0.1)``, ``expand(64)`` and ``remove(7)``, each followed by
+    ``path_system``) and ``a2a_efficiency``: each ring and all-to-all score
+    on ``run.dev`` equals the same call on the CPU (host BFS, numpy
+    admission; each run from a cleared routing cache), and each delta path
+    system equals ``build_path_system(..., cache=False)`` on ``run.dev``
+    field by field.  The largest all-to-all is traced (spans
+    ``fabric/a2a/*``) on both devices: its seconds split into the hop
+    matrix, the enumeration and the Python usage loop
+    (``tools/fabric_a2a_profile.py`` gives the kernels' device time inside
+    the enumeration)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import (
+        add_switch,
+        build_path_system,
+        jellyfish,
+        path_stats,
+        random_permutation_traffic,
+    )
+    from repro_torch.core.routing import clear_routing_cache
+    from repro_torch.core.traffic import Commodities
+    from repro_torch.fabric import make_fabric
+
+    cpu = torch.device("cpu")
+    Timer = obs.Timer
+
+    def on_both(fn):
+        """``fn(device)`` on ``run.dev`` (timed on its clock) and on the CPU,
+        each from a cleared routing cache: (card, cpu, secs, cpu_secs)."""
+        clear_routing_cache()
+        with Timer(device=run.dev) as t:
+            got = fn(run.dev)
+        clear_routing_cache()
+        with Timer() as tc:
+            ref = fn(cpu)
+        return got, ref, t.dt, tc.dt
+
+    out = {"phase": "fabric", "rings": [], "chain": [], "a2a": []}
+
+    def rings():
+        for n in pods:
+            def jf(dev, n=n):
+                fb = make_fabric("jellyfish", n_pods=n, degree=8, seed=0,
+                                 device=dev)
+                return fb.ring(), fb.fail(0.1, seed=1).ring()
+
+            (ej, ef), (cj, cf), secs, cpu_secs = on_both(jf)
+            same_ring(ej, cj, f"jellyfish {n} pods")
+            same_ring(ef, cf, f"jellyfish {n} pods after 10 % failure")
+            row = {"pods": n, "jf_stretch": ej.stretch,
+                   "jf_congestion": ej.congestion,
+                   "jf_efficiency": ej.efficiency,
+                   "jf_stretch_after_10pct_fail": ef.stretch,
+                   "jf_congestion_after_fail": ef.congestion,
+                   "jf_efficiency_after_fail": ef.efficiency,
+                   "seconds": secs, "cpu_seconds": cpu_secs}
+            if n <= ft_max:
+                def ft(dev, n=n):
+                    fb = make_fabric("fattree", n_pods=n, device=dev)
+                    return fb, fb.ring()
+
+                (fg, eg), (_, ec), secs, cpu_secs = on_both(ft)
+                same_ring(eg, ec, f"fat-tree {n} pods")
+                row.update({"ft_name": fg.name,
+                            "ft_switches": fg.topology.n_switches,
+                            "ft_stretch": eg.stretch,
+                            "ft_congestion": eg.congestion,
+                            "ft_efficiency": eg.efficiency,
+                            "ft_seconds": secs, "ft_cpu_seconds": cpu_secs})
+            out["rings"].append(row)
+
+    def expansion():
+        # heterogeneous expansion (§4.2): 48-port switches join a 24-port
+        # Jellyfish; path lengths stay short and the graph valid
+        n0, ports0, r0, joiners = hetero
+        with Timer() as t:
+            top = jellyfish(n0, ports0, r0, seed=0)
+            base = path_stats(top).mean
+            for i in range(joiners):
+                top = add_switch(top, 48, 32, seed=100 + i)
+            st = path_stats(top)
+            top.validate()
+        out["hetero"] = {"base_mean_path": base, "after_mean_path": st.mean,
+                         "n_switches": top.n_switches,
+                         "degree_mix": sorted(set(top.net_degree.tolist())),
+                         "seconds": t.dt}
+
+    def chain():
+        clear_routing_cache()
+        fb = make_fabric("jellyfish", n_pods=chain_pods, degree=8, seed=0,
+                         device=run.dev)
+        comm = random_permutation_traffic(fb.topology, seed=0)
+        with Timer(device=run.dev) as t:
+            ps = fb.path_system(comm, k=8)
+        out["chain"].append({"step": "build", "switches": fb.topology.n_switches,
+                             "paths": ps.n_paths, "seconds": t.dt})
+        for what, args, seed in (("fail", (0.1,), 1), ("expand", (grow,), 2),
+                                 ("remove", (7,), 3)):
+            fb = getattr(fb, what)(*args, seed=seed)
+            if what == "remove":
+                nm = np.asarray(fb.topology.meta["node_remap"])
+                keep = (nm[comm.src] >= 0) & (nm[comm.dst] >= 0)
+                comm = Commodities(src=nm[comm.src[keep]],
+                                   dst=nm[comm.dst[keep]],
+                                   demand=comm.demand[keep],
+                                   n_flows=int(keep.sum()))
+            with Timer(device=run.dev) as t:
+                ps = fb.path_system(comm, k=8)
+            with Timer(device=run.dev) as tr:
+                full = build_path_system(fb.topology, comm, k=8, cache=False,
+                                         device=run.dev)
+            same_system(ps, full, f"fabric {what} delta")
+            check(ps.row_map is not None,
+                  f"fabric {what}: path_system fell back to a rebuild")
+            out["chain"].append({
+                "step": what, "switches": fb.topology.n_switches,
+                "links": fb.topology.n_edges, "paths": ps.n_paths,
+                "delta": ps.row_map is not None,
+                "reused_rows": (int((ps.row_map >= 0).sum())
+                                if ps.row_map is not None else 0),
+                "delta_seconds": t.dt, "rebuild_seconds": tr.dt})
+
+    def a2a():
+        for n in a2a_pods:
+            largest = n == max(a2a_pods)
+
+            def eff(dev, n=n, largest=largest):
+                fb = make_fabric("jellyfish", n_pods=n, degree=8, seed=0,
+                                 device=dev)
+                if not largest:
+                    return fb.a2a_efficiency(), None
+                # the largest: traced, for the split of its seconds
+                prev = obs.set_trace(True)
+                obs.reset_trace()
+                try:
+                    e = fb.a2a_efficiency()
+                    spans = {s.name.rsplit("/", 1)[-1] + "_s": s.wall_s
+                             for s in obs.get_spans()
+                             if s.name.startswith("fabric/a2a/")}
+                finally:
+                    obs.set_trace(prev)
+                    obs.reset_trace()
+                return e, spans
+
+            (eg, split), (ec, cpu_split), secs, cpu_secs = on_both(eff)
+            check(eg == ec, f"all-to-all at {n} pods: {eg} on the card, "
+                  f"{ec} on the CPU")
+            row = {"pods": n, "a2a_efficiency": eg, "seconds": secs,
+                   "cpu_seconds": cpu_secs}
+            if split is not None:
+                row.update({"split": split, "cpu_split": cpu_split})
+            out["a2a"].append(row)
+
+    def path():
+        rings()
+        expansion()
+        chain()
+        a2a()
+
+    _, secs = run("fabric", path)
+    out.update({"seconds": secs, "launches": run.launches["fabric"]})
+    return out
+
+
 def bisection_k(elapsed: float, probes: int, probe_s: float) -> tuple:
     """The fat-tree k of a bisection that takes about ``probes`` probes of
     ``probe_s`` seconds each: K_FULL while that fits what is left of the
@@ -1881,6 +2099,22 @@ def main() -> None:
     emit(families_phase(run))
     torch.cuda.empty_cache()
 
+    # ---- 5''. the fabric layer and the obs CLI ---------------------------- #
+    out = fabric_phase(PathRun(dev, launches))
+    check(out["seconds"] < FABRIC_BUDGET_S,
+          f"the fabric phase took {out['seconds']:.1f} s, over its "
+          f"{FABRIC_BUDGET_S:.0f} s budget")
+    emit(out)
+    torch.cuda.empty_cache()
+    from repro_torch.obs.__main__ import main as obs_main
+
+    t0 = time.perf_counter()
+    rc = obs_main(["smoke", "--device", "cuda"])
+    check(rc == 0, f"python -m repro_torch.obs smoke --device cuda: exit {rc}")
+    emit({"phase": "obs", "command": "python -m repro_torch.obs smoke "
+          "--device cuda", "exit": rc,
+          "seconds": time.perf_counter() - t0})
+
     # ---- 6. kernels -------------------------------------------------------- #
     replaces = {
         "congestion": "src/repro/kernels/congestion.py:78",
@@ -1926,6 +2160,7 @@ def main() -> None:
         "sim": ("congestion_batch", apsp_kernel(512), "admission"),
         "events": ("congestion_batch", apsp_kernel(512), "admission"),
         "families": ("congestion", apsp_kernel(484), "admission"),
+        "fabric": (apsp_kernel(FABRIC_CHAIN_PODS), "admission"),
         "bisection_wave_on": ("congestion_batch",
                               apsp_kernel(fattree_equipment(k_wave)[
                                   "switches"]), "admission"),

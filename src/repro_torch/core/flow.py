@@ -977,7 +977,7 @@ def mw_concurrent_flow_batch(
         while t0 < iters and active.any():
             step = min(check_every, iters - t0)
             with obs.span("mw/window_batch", t0=t0, step=step,
-                          active=int(active.sum())):
+                          active=int(active.sum())):  # repro-lint: disable=JF005 bool count
                 carry = _mw_steps(fused, seg_norm, carry, t0, t0 + step, dem,
                                   inv_cap, slot_valid, frac, eta,
                                   torch.as_tensor(active, device=dev))
@@ -998,7 +998,8 @@ def mw_concurrent_flow_batch(
                     active[b] = False
                     obs.counter(f"mw/stop/{reason}").inc()
         if active.any():
-            obs.counter("mw/stop/budget").inc(int(active.sum()))
+            n_left = int(active.sum())  # repro-lint: disable=JF005 bool count
+            obs.counter("mw/stop/budget").inc(n_left)
     alpha, rates, max_load = _mw_final(fused, carry, dem, inv_cap)
     alpha = alpha.cpu().numpy()
     rates = rates.cpu().numpy()
@@ -1054,7 +1055,7 @@ def lp_concurrent_flow(ps: PathSystem, alpha_cap: float = 8.0) -> FlowResult:
     )
     vals = np.concatenate(
         [
-            np.ones(int(lens.sum())),
+            np.ones(int(lens.sum())),  # repro-lint: disable=JF005 integer sum
             -np.ones(P),
             ps.demands.astype(np.float64),
         ]
@@ -1105,10 +1106,11 @@ def lp_edge_concurrent_flow(top, comm, alpha_cap: float = 8.0) -> float:
     rows = np.concatenate(
         [out_rows, in_rows, np.arange(K) * N + src, np.arange(K)[ndd] * N + dst[ndd]]
     )
+    n_dd = int(ndd.sum())  # repro-lint: disable=JF005 bool count
     cols = np.concatenate(
         [var_cols, var_cols,
          np.full(K, nvar - 1, dtype=np.int64),
-         np.full(int(ndd.sum()), nvar - 1, dtype=np.int64)]
+         np.full(n_dd, nvar - 1, dtype=np.int64)]
     )
     vals = np.concatenate(
         [np.ones(K * E2), -np.ones(K * E2), -dem, dem[ndd]]

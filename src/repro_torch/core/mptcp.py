@@ -185,6 +185,7 @@ def mptcp_throughput(
     x = x.cpu().numpy()
     norm = x / np.maximum(ps.demands, 1e-9)
     # Jain's fairness index over per-commodity normalized throughput
-    jain = float((norm.sum() ** 2) / (len(norm) * (norm**2).sum() + 1e-12))
+    s1, s2 = norm.sum(), (norm**2).sum()  # repro-lint: disable=JF005 host float64
+    jain = float((s1 ** 2) / (len(norm) * s2 + 1e-12))
     return MptcpResult(norm, float(norm.mean()), jain, iters,
                        r.cpu().numpy())

@@ -11,7 +11,9 @@ file started together, and loads the libraries.  A library whose name
 carries the hash of its source, the headers and the flags is reused when
 it already exists.
 
-A missing ``nvcc`` or a failed compile raises; there is no fallback.
+Each source compiled publishes one ``cuda/nvcc_build`` event on the obs
+bus (``obs.bench.count_compiles`` counts them); a reused library publishes
+none.  A missing ``nvcc`` or a failed compile raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ import shutil
 import subprocess
 import threading
 import time
+
+from .. import obs
+from ..obs.bench import COMPILE_EVENT
 
 __all__ = ["SOURCES", "BUILD_DIR", "COUNT_LOCK", "build_all", "library",
            "check_launch"]
@@ -116,6 +121,7 @@ def build_all() -> dict[str, float]:
             failed.append(f"--- {SOURCES[name]} (exit {proc.returncode}) ---\n{log}")
             continue
         os.replace(tmp, out)
+        obs.emit(COMPILE_EVENT, source=SOURCES[name], seconds=seconds[name])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return seconds

@@ -539,3 +539,32 @@ def test_simulate_events_fail_heal_dense_vs_gather_on_card(dev):
         x = np.asarray(getattr(d.result, f), np.float64)
         y = np.asarray(getattr(g.result, f), np.float64)
         assert np.abs(x - y).max() <= 1e-3 * max(np.abs(y).max(), 1.0), f
+
+
+def test_fabric_ring_and_delta_on_card_equal_cpu(dev):
+    """A 256-pod Jellyfish ring and a ``fail -> path_system`` delta through
+    ``FabricModel`` on the card equal the CPU's (host BFS, numpy admission)
+    exactly; the card's run launches the int16 min-plus and the admission
+    kernel, the CPU's launches nothing."""
+    from repro_torch.fabric import make_fabric
+
+    runs = {}
+    for where in ("cuda", "cpu"):
+        clear_routing_cache()
+        kernels.reset_launch_counts()
+        fb = make_fabric("jellyfish", n_pods=256, degree=8, seed=0,
+                         device=dev if where == "cuda" else "cpu")
+        comm = random_permutation_traffic(fb.topology, seed=0)
+        emb = fb.ring()
+        fb.path_system(comm)
+        ps = fb.fail(0.1, seed=1).path_system(comm)
+        runs[where] = (emb, ps, kernels.launch_counts())
+    (eg, pg, cg), (ec, pc, cc) = runs["cuda"], runs["cpu"]
+    assert np.array_equal(eg.order, ec.order) and eg.hop_paths == ec.hop_paths
+    assert (eg.stretch, eg.congestion) == (ec.stretch, ec.congestion)
+    assert pg.row_map is not None and np.array_equal(pg.row_map, pc.row_map)
+    for f in ("path_edges", "path_len", "path_owner", "demands", "src", "dst",
+              "unrouted"):
+        assert np.array_equal(getattr(pg, f), getattr(pc, f)), f
+    assert cg["minplus_hops"] > 0 and cg["admission"] > 0
+    assert not any(cc.values())

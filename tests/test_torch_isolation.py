@@ -78,7 +78,19 @@ def test_event_and_family_modules_are_covered():
         assert m in mods
 
 
+def test_fabric_bench_and_lint_modules_are_covered():
+    mods = set(_modules())
+    for m in ("repro_torch.fabric", "repro_torch.fabric.collectives",
+              "repro_torch.fabric.embedding", "repro_torch.fabric.model",
+              "repro_torch.obs.bench", "repro_torch.obs.__main__",
+              "repro_torch.analysis.linter", "repro_torch.analysis.__main__"):
+        assert m in mods
+
+
 @pytest.mark.parametrize("entry", [
+    "repro_torch.fabric.embedding:embed_ring",
+    "repro_torch.fabric.embedding:all_to_all_congestion",
+    "repro_torch.fabric.model:make_fabric",
     "repro_torch.sim.events:simulate_events",
     "repro_torch.sim.workloads:run_tenant_churn",
     "repro_torch.sim.workloads:tenant_churn_segments",
