@@ -7,9 +7,10 @@ Runs the paper's Fig 1c capacity path, the spectral lambda_2 path, the
 incremental-expansion path and the §5 routing paths (batched path-system
 builds with the build pipeline, ECMP, fluid MPTCP, the flow-level
 simulator with live topology events), the paper's other topology
-families and the inter-pod fabric layer (ring embedding, all-to-all
-scoring, elastic delta routing) at full width on the card and prints one
-JSON line per phase:
+families, the inter-pod fabric layer (ring embedding, all-to-all
+scoring, elastic delta routing) and the model stack's serving path (four
+model families prefilling and decoding) at full width on the card and
+prints one JSON line per phase:
 
 1. ``build``   compile the hand-written CUDA kernels from ``csrc/`` (one
                ``nvcc`` per source, started together).
@@ -104,7 +105,8 @@ JSON line per phase:
                ``pipeline/stall_s`` and ``pipeline/overlap_s``; when the
                budget is short this pair drops to k=16 (against a
                sequential search there) before the search above does.
-   ``events``  live topology events (§4.3) at the ``sim`` instance with
+   ``events``  live topology events (§4.3) at the ``sim`` instance, cut
+               to its first 4 seeds (``EVENTS_SEEDS``), with
                the CT checks on: for ``ksp_lc`` and ``ecmp``,
                ``simulate_events`` with an empty schedule and with
                ``max_seg=40`` equal to ``simulate`` bit for bit, then links
@@ -140,6 +142,21 @@ JSON line per phase:
                Under 60 s.
    ``obs``     ``python -m repro_torch.obs smoke --device cuda`` in-process:
                a traced MW solve bit-identical to an untraced one.
+   ``serve``   the model stack's serving path (``repro_torch.models``,
+               ``launch.serve``), eager PyTorch, none of the kernels below:
+               every registered arch at ``reduced()`` in float32, the same
+               weights on the card and on the CPU (prefill logits, every
+               cache tensor, 10 greedy decode steps, a 24-token prompt
+               wrapping the 16-slot windows); then ``rwkv6-1.6b`` (serve's
+               default), ``minitron-8b``, ``qwen2-moe-a2.7b`` and
+               ``recurrentgemma-2b`` at full width in bf16, batch 4, prompt
+               32, 16 new tokens through ``serve.generate``: parameters,
+               peak memory, prefill ms, decode ms a token beside its HBM
+               bound, decode against a fresh prefill for 3 steps, one decode
+               step traced (device-busy share, launches, top five ops);
+               ``rwkv6-1.6b`` also in f32 on the card against f32 and f64 on
+               the CPU, and bf16 against f32 per layer and at the logits.
+               Under 90 s.
 6. ``kernels`` per kernel: launches on each path (``apsp``, ``apsp_f32``,
                ``spectral``, the probe,
                ``alpha_of``, ``expansion``, ``build_batch``,
@@ -189,6 +206,9 @@ EXP_FAIL_FRACTION = 0.05
 SPECTRAL_ITERS, SPECTRAL_BLOCK = 300, 8
 #: Seconds the whole script aims to stay within (half the run's limit).
 TIME_BUDGET_S = 600.0
+#: Seeds of the events phase: the sim instance's first 4 of 8, cut so that
+#: the serve phase fits the budget.
+EVENTS_SEEDS = 4
 
 
 def emit(obj: dict) -> None:
@@ -1230,6 +1250,444 @@ def fabric_phase(run: PathRun, pods=FABRIC_PODS, ft_max: int = FABRIC_FT_MAX,
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the model stack's serving path (repro_torch.models, launch.serve)
+# --------------------------------------------------------------------------- #
+
+#: Serve phase: every registered arch at ``reduced()`` in float32, card
+#: against CPU from one set of weights; a 24-token prompt wraps the 16-slot
+#: windows of mixtral and recurrentgemma, and 10 decode steps pass 32.
+SERVE_REDUCED_PROMPT, SERVE_REDUCED_STEPS = 24, 10
+#: Card against CPU, both float32 with TF32 off: the CPU tests' bounds
+#: (tests/test_torch_serve.py), which the sums' different orders meet.
+SERVE_LOGIT_TOL = dict(rtol=1e-4, atol=2e-5)
+SERVE_CACHE_TOL = dict(rtol=1e-4, atol=5e-5)
+#: Full width, as ``serve`` runs it: batch 4, prompt 32, 16 new tokens.
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 32, 16
+SERVE_DEFAULT = "rwkv6-1.6b"
+SERVE_FAMILIES = ("minitron-8b", "qwen2-moe-a2.7b", "recurrentgemma-2b")
+#: The float32 twins: the arch's weights drawn in float32 on the card and
+#: run first (prefill and SERVE_TWIN_STEPS greedy decode steps), then cast
+#: to bf16 in place for serving, so one card holds qwen-moe's 57 GB of
+#: float32.  Family -> the dtypes of the copies that also run on the CPU.
+SERVE_TWINS = {"rwkv6": ("float32", "float64"), "moe": ()}
+SERVE_TWIN_STEPS = 4
+#: Bounds on the largest difference over the largest magnitude of the
+#: reference side (readings: an H100, PERF.md):
+#: - f32 card against f32 CPU: 2e-3; against float64 on the CPU: 1e-3 (the
+#:   CPU's own f32 reads 3.4e-4 from float64 at rwkv's full width, the
+#:   card's 2.8e-5).
+#: - bf16 against its f32 twin, each layer alone (its input the twin's f32
+#:   stream, rounded to bf16) in the prefill and the first decode step, and
+#:   the final norm and head on the twin's last stream: 0.05 (rwkv read
+#:   0.030 at most).  The MoE's prefill layers are read, not bounded: its
+#:   bf16 router may move a token's fourth expert or its drop at capacity,
+#:   a step change (0.049 in the first layer at full width, 0.18 at
+#:   reduced()); its drop-free decode layers are bounded.
+#: - bf16 against f32 end to end: qwen-moe 0.1 (read 0.024).  rwkv 0.75,
+#:   under the 1.0 that all-zero logits read and above its read 0.54:
+#:   random-init RWKV-6 amplifies the rounding of its first positions
+#:   (whose wkv output has rank one or two) over 24 layers until the logits
+#:   move by half their scale, and the reference does the same
+#:   (tests/test_torch_bf16.py), so its layers alone are the gate that
+#:   holds its bf16 math.
+#: - bf16 decode against a fresh bf16 prefill: 0.1.
+#: - A stream that no longer depends on its tokens gives one greedy token
+#:   at every position of a row: every prompt row must give at least two.
+SERVE_CPU_TWIN_REL = {"float32": 2e-3, "float64": 1e-3}
+SERVE_BF16_LAYER_REL = 0.05
+SERVE_BF16_REL = {"rwkv6": 0.75, "moe": 0.1}
+SERVE_DECODE_BF16_REL = 0.1
+SERVE_BUDGET_S = 90.0
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float32 on the host."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def _copy_model(model, dtype, device):
+    """The same weights in a new ``LM`` (cast to ``dtype``) on ``device``."""
+    from repro_torch.models import LM
+
+    out = LM(model.cfg, seed=None, dtype=dtype, device=device)
+    out.load_state_dict(model.state_dict())
+    return out
+
+
+def _close_or_fail(got, want, tol: dict, what: str) -> float:
+    import torch
+
+    g, w = got.detach().cpu(), want.detach().cpu()
+    if g.dtype in (torch.int32, torch.int64):
+        check(torch.equal(g, w), f"{what} differs")
+        return 0.0
+    check(torch.allclose(g, w, **tol),
+          f"{what}: largest difference {float((g - w).abs().max()):.3g} "
+          f"outside rtol {tol['rtol']}, atol {tol['atol']}")
+    return float((g - w).abs().max())
+
+
+def serve_reduced(dev, arch: str) -> dict:
+    """One reduced arch in float32: the same weights on the card and on the
+    CPU; prefill logits, every cache tensor, the greedy decode steps'
+    logits and the tokens must agree."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get(arch).reduced()
+    prompt, steps = SERVE_REDUCED_PROMPT, SERVE_REDUCED_STEPS
+    cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    card = _copy_model(cpu, torch.float32, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt),
+                         generator=torch.Generator().manual_seed(1))
+    max_len = prompt + steps
+    lc, cc = prefill(cpu, {"tokens": toks}, max_len=max_len)
+    lg, cg = prefill(card, {"tokens": toks.to(dev)}, max_len=max_len)
+    logit_err = _close_or_fail(lg, lc, SERVE_LOGIT_TOL, f"{arch} prefill")
+    cache_err = 0.0
+    for layer, (a, b) in enumerate(zip(cg, cc)):
+        for k in b:
+            cache_err = max(cache_err, _close_or_fail(
+                a[k], b[k], SERVE_CACHE_TOL, f"{arch} layer {layer} {k}"))
+    tokens_equal = True
+    for i in range(steps):
+        tc = torch.argmax(lc[:, :cfg.vocab_size], -1)
+        tg = torch.argmax(lg[:, :cfg.vocab_size], -1)
+        tokens_equal &= bool(torch.equal(tg.cpu(), tc))
+        check(tokens_equal, f"{arch}: greedy tokens differ at step {i}")
+        lc, cc = decode_step(cpu, cc, tc, prompt + i)
+        lg, cg = decode_step(card, cg, tg, prompt + i)
+        logit_err = max(logit_err, _close_or_fail(
+            lg, lc, SERVE_LOGIT_TOL, f"{arch} decode step {i}"))
+    slots = [int(c["k"].shape[1]) for c in cg if "k" in c]
+    return {"logit_max_abs_err": logit_err, "cache_max_abs_err": cache_err,
+            "tokens_equal": tokens_equal, "kv_slots": min(slots or [0])}
+
+
+def run_steps(model, prompt, steps: int, tokens=None) -> dict:
+    """Prefill ``prompt`` (B, S) and decode ``steps`` steps, greedy unless
+    ``tokens`` (B, steps) are given.  Returns each step's logits, the
+    tokens fed, and the residual stream after every layer of the prefill
+    and of the first decode step (all float32, on the host)."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    streams = []
+    hooks = [blk.register_forward_hook(
+        lambda _m, _i, out: streams.append(out[0].detach().float().cpu()))
+        for blk in model.blocks]
+    dev, s, vocab = model.device, prompt.shape[1], model.cfg.vocab_size
+    try:
+        lg, cache = prefill(model, {"tokens": prompt.to(dev)},
+                            max_len=s + steps)
+        logits, fed = [lg.float().cpu()], []
+        for i in range(steps):
+            tok = (tokens[:, i] if tokens is not None
+                   else torch.argmax(lg[:, :vocab], -1).cpu())
+            fed.append(tok)
+            lg, cache = decode_step(model, cache, tok.to(dev), s + i)
+            logits.append(lg.float().cpu())
+    finally:
+        for h in hooks:
+            h.remove()
+    n = len(model.blocks)
+    return {"logits": logits, "tokens": torch.stack(fed, dim=1),
+            "prefill": streams[:n], "decode": streams[n:2 * n]}
+
+
+def _block(model, i: int, x, positions, cache):
+    if model.kinds[i] == "attn":
+        y, cache, _ = model.blocks[i](x, positions, model.cfg, cache)
+        return y, cache
+    return model.blocks[i](x, cache, model.cfg)
+
+
+def layer_gaps(m16, twin: dict, prompt) -> dict:
+    """Each bf16 layer alone against its f32 twin: its input the twin's
+    stream before it (rounded to bf16), prefill and then the first decode
+    step with the cache that prefill left; and the bf16 final norm and head
+    on the twin's last decode stream.  Errors as ``rel_err``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import init_cache
+    from repro_torch.models.layers import rmsnorm
+
+    cfg, dev, dt = m16.cfg, m16.device, m16.dtype
+    b, s = prompt.shape
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    pos1 = torch.full((1,), s, dtype=torch.int32, device=dev)
+    tok = twin["tokens"][:, :1].to(dev)
+    ins = {"prefill": [F.embedding(prompt.to(dev), m16.embed)]
+           + twin["prefill"][:-1],
+           "decode": [F.embedding(tok, m16.embed)] + twin["decode"][:-1]}
+    caches = init_cache(cfg, b, s + 1, dt, dev)
+    gaps = {"prefill": [], "decode": []}
+    for i in range(len(m16.blocks)):
+        y, cache = _block(m16, i, ins["prefill"][i].to(dev, dt), pos,
+                          caches[i])
+        gaps["prefill"].append(rel_err(y, twin["prefill"][i]))
+        y, _ = _block(m16, i, ins["decode"][i].to(dev, dt), pos1, cache)
+        gaps["decode"].append(rel_err(y, twin["decode"][i]))
+    y = rmsnorm(twin["decode"][-1].to(dev, dt), m16.final_norm, cfg.norm_eps)
+    gaps["head"] = rel_err(m16.logits(y)[:, 0], twin["logits"][1])
+    return gaps
+
+
+def prefill_argmax(model, prompt) -> tuple:
+    """One prefill of ``prompt`` (B, S): the greedy token at every position
+    if the stream went to the final norm and head after each layer (a
+    list, one (B, S) tensor a layer; the last is the model's own), and each
+    layer's share of the stream that varies over a row's positions,
+    sum |x - mean_s x|^2 / sum |x|^2."""
+    import torch
+
+    from repro_torch.models import prefill
+    from repro_torch.models.layers import rmsnorm
+
+    seen = []
+    hooks = [blk.register_forward_hook(
+        lambda _m, _i, out: seen.append(out[0])) for blk in model.blocks]
+    try:
+        prefill(model, {"tokens": prompt}, max_len=prompt.shape[1])
+    finally:
+        for h in hooks:
+            h.remove()
+    tokens, shares = [], []
+    for x in seen:
+        y = rmsnorm(x, model.final_norm, model.cfg.norm_eps)
+        tokens.append(torch.argmax(
+            model.logits(y)[..., :model.cfg.vocab_size], -1))
+        x = x.float()
+        shares.append(float(((x - x.mean(1, keepdim=True)) ** 2).sum()
+                            / (x ** 2).sum()))
+    return tokens, shares
+
+
+def _model_sizes(model) -> dict:
+    """Parameters and bytes counted from the module, and the decode step's
+    HBM bound: the bytes it must read over the card's rate.  That is every
+    parameter but an untied input embedding, of which a step gathers only
+    one row a sequence (a tied table is read whole as the LM head)."""
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    read = nbytes
+    if hasattr(model, "lm_head"):
+        read -= model.embed.numel() * model.embed.element_size()
+    return {"params": n, "param_bytes": nbytes, "decode_read_bytes": read,
+            "analytic_params": model.cfg.param_count(),
+            "decode_hbm_bound_ms": read / HBM_BYTES_PER_S * 1e3}
+
+
+def _timed_generate(model, prompts, max_new: int):
+    """``serve.generate`` once to warm the card's libraries, then timed."""
+    from repro_torch.launch.serve import generate
+
+    generate(model, prompts, 2)
+    return generate(model, prompts, max_new)
+
+
+def decode_trace(model, cache, token, pos: int) -> dict:
+    """One decode step under ``torch.profiler`` (device activity): the
+    device-busy share of the step's window, the kernels launched and the
+    five operations with the most device time; beside it the step's
+    synchronized time untraced.  Both steps write ``pos`` into ``cache`` in
+    place (the same slot, the same values)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_step(model, cache, token, pos)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_step(model, cache, token, pos)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    ops = [(ev.key, ev.device_time_total / 1e3, ev.count)
+           for ev in prof.key_averages() if not ev.key.startswith("cuda")]
+    busy_ms = sum(t for _, t, _ in ops)
+    if busy_ms == 0.0:
+        return {"timer": "not measured: the profiler saw no device activity",
+                "window_ms": window_ms, "untraced_ms": untraced_ms}
+    top = sorted(ops, key=lambda o: -o[1])[:5]
+    return {"timer": "profiler", "window_ms": window_ms,
+            "untraced_ms": untraced_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / window_ms,
+            "device_busy_share_of_untraced": busy_ms / untraced_ms,
+            "kernel_launches": sum(n for _, _, n in ops),
+            "top_ops": [{"name": k[:120], "device_ms": t, "count": n}
+                        for k, t, n in top]}
+
+
+def serve_full(dev, cfg) -> dict:
+    """One model at full width in bf16, as ``serve`` runs it: ``generate``
+    timed (prefill ms, decode ms a token), finite logits, tokens in range,
+    greedy tokens that vary over the prompt's positions, decode against a
+    fresh prefill of the longer prompt for 3 steps (drop-free MoE
+    capacity), and on the card one traced decode step.  A family in
+    ``SERVE_TWINS`` first runs its weights in float32 (on the card, and on
+    the CPU in the listed dtypes), and its bf16 run of the same tokens is
+    then held against the card's float32, layer by layer and at the
+    logits."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cuda = dev.type == "cuda"
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    prompts = torch.randint(0, cfg.vocab_size, (b, s + 3),
+                            generator=torch.Generator().manual_seed(2))
+    out, errs = {}, {}
+    cpu_twins = SERVE_TWINS.get(cfg.family)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_init = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16
+                        if cpu_twins is None else torch.float32)
+    if cuda:
+        torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t_init
+    if cpu_twins is not None:
+        twin = run_steps(model, prompts[:, :s], SERVE_TWIN_STEPS)
+        cpu_logits = {}
+        for name in cpu_twins:
+            cpu = _copy_model(model, getattr(torch, name), "cpu")
+            cpu_logits[name] = run_steps(cpu, prompts[:, :s],
+                                         SERVE_TWIN_STEPS,
+                                         twin["tokens"])["logits"]
+            del cpu
+            err = [rel_err(a, c) for a, c in zip(twin["logits"],
+                                                 cpu_logits[name])]
+            check(max(err) <= SERVE_CPU_TWIN_REL[name],
+                  f"{cfg.name}: f32 card against {name} on the CPU "
+                  f"{max(err):.3g} > {SERVE_CPU_TWIN_REL[name]} of the "
+                  "largest |logit|")
+            errs[f"f32_card_vs_cpu_{name}_rel"] = err
+        if {"float32", "float64"} <= set(cpu_logits):
+            errs["f32_cpu_vs_float64_rel"] = [
+                rel_err(a, c) for a, c in zip(cpu_logits["float32"],
+                                              cpu_logits["float64"])]
+        del cpu_logits
+        if cuda:
+            out["twin_peak_allocated_bytes"] = torch.cuda.max_memory_allocated(
+                dev)
+        model.to(torch.bfloat16)  # in place, one tensor at a time
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+    out.update(_model_sizes(model))
+
+    g = _timed_generate(model, prompts[:, :s], SERVE_NEW)
+    toks = g.tokens
+    check(toks.shape == (b, SERVE_NEW), f"{cfg.name}: tokens {toks.shape}")
+    check(bool(torch.all((toks >= 0) & (toks < cfg.vocab_size))),
+          f"{cfg.name}: a generated token lies outside [0, vocab_size)")
+    out.update({"prefill_ms": g.prefill_ms,
+                "decode_ms_per_token": g.decode_ms_per_token,
+                "tokens": toks.tolist()})
+    out["decode_over_bound"] = (out["decode_ms_per_token"]
+                                / out["decode_hbm_bound_ms"])
+    p = prompts.to(dev)
+    by_layer, shares = prefill_argmax(model, p[:, :s])
+    per_row = [len(set(row)) for row in by_layer[-1].tolist()]
+    out.update({"prefill_argmax_distinct_by_layer": [
+                    int(torch.unique(t).numel()) for t in by_layer],
+                "prefill_argmax_distinct_per_row": per_row,
+                "position_varying_share_by_layer": shares})
+    check(min(per_row) >= 2,
+          f"{cfg.name}: one greedy token at every position of a prompt row "
+          f"({per_row} distinct a row)")
+
+    # decode against a fresh prefill of the longer prompt
+    run_cfg = model.cfg
+    if cfg.family == "moe":
+        model.cfg = dataclasses.replace(cfg, capacity_factor=100.0)
+    logits, cache = prefill(model, {"tokens": p[:, :s]}, max_len=s + 3)
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: non-finite prefill logits")
+    dec = []
+    for i in range(3):
+        want, _ = prefill(model, {"tokens": p[:, :s + i + 1]}, max_len=s + 3)
+        got, cache = decode_step(model, cache, p[:, s + i], s + i)
+        check(bool(torch.isfinite(got).all()),
+              f"{cfg.name}: non-finite decode logits")
+        dec.append(rel_err(got, want))
+    check(max(dec) <= SERVE_DECODE_BF16_REL,
+          f"{cfg.name}: bf16 decode against prefill {max(dec):.3g} > "
+          f"{SERVE_DECODE_BF16_REL} of the largest |logit|")
+    model.cfg = run_cfg
+    out["decode_vs_prefill_rel"] = dec
+
+    if cpu_twins is not None:
+        run16 = run_steps(model, prompts[:, :s], SERVE_TWIN_STEPS,
+                          twin["tokens"])
+        errs["bf16_vs_f32_rel"] = [rel_err(a, c) for a, c in
+                                   zip(run16["logits"], twin["logits"])]
+        errs["bf16_f32_greedy_agreement"] = [
+            float((torch.argmax(a[:, :cfg.vocab_size], -1)
+                   == torch.argmax(c[:, :cfg.vocab_size], -1)).float().mean())
+            for a, c in zip(run16["logits"], twin["logits"])]
+        gaps = layer_gaps(model, twin, prompts[:, :s])
+        gated = gaps["decode"] + [gaps["head"]]
+        if cfg.family != "moe":
+            gated += gaps["prefill"]
+        check(max(gated) <= SERVE_BF16_LAYER_REL,
+              f"{cfg.name}: a bf16 layer alone against its f32 twin "
+              f"{max(gated):.3g} > {SERVE_BF16_LAYER_REL}")
+        bound = SERVE_BF16_REL[cfg.family]
+        bf16_max = max(errs["bf16_vs_f32_rel"])
+        check(bf16_max <= bound,
+              f"{cfg.name}: bf16 against f32 {bf16_max:.3g} > {bound} of "
+              "the largest |logit|")
+        out.update({**errs, "bf16_layer_alone_rel": gaps})
+        del twin, run16
+    if cuda:
+        logits, cache = prefill(model, {"tokens": p[:, :s]}, max_len=s + 1)
+        tok = torch.argmax(logits[:, :cfg.vocab_size], -1)
+        out["decode_trace"] = decode_trace(model, cache, tok, s)
+    del model, cache
+    gc.collect()
+    if cuda:
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_phase(dev, shrink=None) -> dict:
+    """The serving path: every registered arch at ``reduced()`` card against
+    CPU (float32), then ``rwkv6-1.6b`` (serve's default) and one model per
+    other family at full width in bf16.  ``shrink`` maps a full config to a
+    smaller one (a CPU rehearsal only); none of the port's five kernels runs
+    here, and the launch counts say so."""
+    from repro_torch import kernels
+    from repro_torch.configs import get, names
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    reduced = {arch: serve_reduced(dev, arch) for arch in names()}
+    shrink = shrink or (lambda c: c)
+    full = {arch: serve_full(dev, shrink(get(arch)))
+            for arch in (SERVE_DEFAULT, *SERVE_FAMILIES)}
+    return {"phase": "serve", "reduced": reduced, "full": full,
+            "kernel_launches": kernels.launch_counts(),
+            "seconds": time.perf_counter() - t0}
+
+
 def bisection_k(elapsed: float, probes: int, probe_s: float) -> tuple:
     """The fat-tree k of a bisection that takes about ``probes`` probes of
     ``probe_s`` seconds each: K_FULL while that fits what is left of the
@@ -2094,7 +2552,7 @@ def main() -> None:
 
     # ---- 5'. live topology events and the other topology families -------- #
     run = PathRun(dev, launches)
-    emit(events_phase(run))
+    emit(events_phase(run, n_seeds=EVENTS_SEEDS))
     torch.cuda.empty_cache()
     emit(families_phase(run))
     torch.cuda.empty_cache()
@@ -2114,6 +2572,15 @@ def main() -> None:
     emit({"phase": "obs", "command": "python -m repro_torch.obs smoke "
           "--device cuda", "exit": rc,
           "seconds": time.perf_counter() - t0})
+
+    # ---- 5'''. the model stack's serving path ----------------------------- #
+    out = serve_phase(dev)
+    check(out["seconds"] < SERVE_BUDGET_S,
+          f"the serve phase took {out['seconds']:.1f} s, over its "
+          f"{SERVE_BUDGET_S:.0f} s budget")
+    check(not any(out["kernel_launches"].values()),
+          f"the serving path launched kernels {out['kernel_launches']}")
+    emit(out)
 
     # ---- 6. kernels -------------------------------------------------------- #
     replaces = {

@@ -10,7 +10,8 @@ JF001  No Python ``hash()`` / set-iteration in the port's routing, flow and
        implementation detail.  Membership tests and order-insensitive folds
        (len/min/max/sum/any/all) are fine; iterating, ``list()``-ing or
        ``.pop()``-ing a set is not unless it goes through ``sorted(...)``.
-JF002  In the same modules, ``np.argsort`` must pass ``kind="stable"`` and
+JF002  In the same modules and in ``models/`` (the MoE dispatch sorts),
+       ``np.argsort`` must pass ``kind="stable"`` and
        ``torch.sort`` / ``torch.argsort`` must pass ``stable=True``: the
        default sorts are unstable, so equal keys come back in an arbitrary
        order (on CUDA, a launch-configuration-dependent one), which breaks
@@ -26,12 +27,13 @@ JF004  A kernel wrapper in ``kernels/`` that pads or copies operands
 JF005  A raw ``torch.sum`` / ``.sum(`` / ``torch.einsum`` in ``core/flow.py``,
        ``core/mptcp.py`` and ``sim/engine.py`` must use the positional
        ``_fold_sum`` halving tree (a padded axis must not change the sum).
-       Any ``index_add(_)`` / ``scatter_add(_)`` in ``core/``, ``sim/`` and
-       ``kernels/`` is flagged too: on CUDA they are atomics, whose order of
-       addition is not fixed.
+       Any ``index_add(_)`` / ``scatter_add(_)`` in ``core/``, ``sim/``,
+       ``kernels/`` and ``models/`` is flagged too: on CUDA they are
+       atomics, whose order of addition is not fixed.
 JF006  No ``torch.compile`` / ``torch.jit.script`` / ``torch.jit.trace``
        created inside a function body in the solver modules (``core/``,
-       ``sim/``, ``kernels/``): a per-call wrapper recompiles every call.
+       ``sim/``, ``kernels/``, ``models/``): a per-call wrapper recompiles
+       every call.
 
 A finding can be suppressed per line with ``# repro-lint: disable=JF00X``
 (comma-separate to suppress several rules), with the reason after it.
@@ -100,7 +102,8 @@ _FOLD_SUM_FILES = (
     "repro_torch/sim/engine.py",
 )
 _SOLVER_DIRS = ("repro_torch/core/", "repro_torch/sim/",
-                "repro_torch/kernels/")
+                "repro_torch/kernels/", "repro_torch/models/")
+_MODELS_DIR = "repro_torch/models/"
 
 
 def _norm(path: str) -> str:
@@ -114,6 +117,10 @@ def _in_port(path: str) -> bool:
 def _in_routing_sim(path: str) -> bool:
     p = _norm(path)
     return p.endswith(_ROUTING_SIM_FILES) or "repro_torch/sim/" in p
+
+
+def _in_sort_scope(path: str) -> bool:
+    return _in_routing_sim(path) or _MODELS_DIR in _norm(path)
 
 
 def _in_fold_sum_scope(path: str) -> bool:
@@ -462,6 +469,7 @@ def lint_source(source: str, path: str) -> list[Violation]:
     _check_jf000(source, path, out)
     if _in_routing_sim(path):
         _check_jf001(tree, path, out)
+    if _in_sort_scope(path):
         _check_jf002(tree, path, out)
     if _in_port(path) and not _is_env_registry(path):
         _check_jf003(tree, path, out)

@@ -1,0 +1,10 @@
+"""Minitron-8B: width-pruned Nemotron-4, dense GQA. [arXiv:2407.14679; hf]"""
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="minitron-8b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=16384, vocab_size=256000, head_dim=128,
+    qkv_bias=False, rope_theta=10_000.0,
+    source="arXiv:2407.14679",
+))

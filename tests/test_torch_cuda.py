@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card,
+and the serving path on the card against the CPU.
 
 Every test here needs an NVIDIA GPU with CUDA and ``nvcc`` (the kernels are
 compiled at first use); without one each test skips with a reason.  This
@@ -568,3 +569,44 @@ def test_fabric_ring_and_delta_on_card_equal_cpu(dev):
         assert np.array_equal(getattr(pg, f), getattr(pc, f)), f
     assert cg["minplus_hops"] > 0 and cg["admission"] > 0
     assert not any(cc.values())
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "qwen2-moe-a2.7b",
+                                  "rwkv6-1.6b", "recurrentgemma-2b",
+                                  "mixtral-8x22b"])
+def test_serving_path_on_card_equals_cpu(dev, arch):
+    """The serving path at ``reduced()`` in float32 (TF32 off), the same
+    weights on the card and on the CPU: prefill logits and every cache
+    tensor, then 10 greedy decode steps (a 24-token prompt wraps the 16-slot
+    windows, the steps pass position 32), within the CPU parity tests'
+    bounds (logits rtol 1e-4, atol 2e-5; caches rtol 1e-4, atol 5e-5),
+    cache positions and greedy tokens equal.  No kernel of the port runs."""
+    from repro_torch.configs import get
+    from repro_torch.models import LM, decode_step, init_params, prefill
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get(arch).reduced()
+    cpu = init_params(cfg, seed=0, device="cpu")
+    card = LM(cfg, seed=None, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    lc, cc = prefill(cpu, {"tokens": toks}, max_len=34)
+    lg, cg = prefill(card, {"tokens": toks.to(dev)}, max_len=34)
+    tol = dict(rtol=1e-4, atol=2e-5)
+    assert torch.allclose(lg.cpu(), lc, **tol)
+    for a, b in zip(cg, cc):
+        for k in b:
+            if k == "abs_pos":
+                assert torch.equal(a[k].cpu(), b[k])
+            else:
+                assert torch.allclose(a[k].cpu(), b[k], rtol=1e-4, atol=5e-5)
+    for i in range(10):
+        tc = torch.argmax(lc[:, :cfg.vocab_size], -1)
+        tg = torch.argmax(lg[:, :cfg.vocab_size], -1)
+        assert torch.equal(tg.cpu(), tc)
+        lc, cc = decode_step(cpu, cc, tc, 24 + i)
+        lg, cg = decode_step(card, cg, tg, 24 + i)
+        assert torch.allclose(lg.cpu(), lc, **tol)
+    assert not any(kernels.launch_counts().values())

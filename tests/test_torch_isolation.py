@@ -87,7 +87,25 @@ def test_fabric_bench_and_lint_modules_are_covered():
         assert m in mods
 
 
+def test_model_stack_and_serve_modules_are_covered():
+    mods = set(_modules())
+    for m in ("repro_torch.configs", "repro_torch.configs.base",
+              "repro_torch.configs.rwkv6_1_6b", "repro_torch.models",
+              "repro_torch.models.layers", "repro_torch.models.attention",
+              "repro_torch.models.moe", "repro_torch.models.rwkv6",
+              "repro_torch.models.rglru", "repro_torch.models.frontends",
+              "repro_torch.models.transformer", "repro_torch.launch",
+              "repro_torch.launch.serve", "repro_torch.convert"):
+        assert m in mods
+
+
 @pytest.mark.parametrize("entry", [
+    "repro_torch.models.transformer:init_params",
+    "repro_torch.models.transformer:init_cache",
+    "repro_torch.models.transformer:LM",
+    "repro_torch.convert:lm_params_from_numpy",
+    "repro_torch.models.frontends:vit_stub_embeddings",
+    "repro_torch.models.frontends:encodec_stub_embeddings",
     "repro_torch.fabric.embedding:embed_ring",
     "repro_torch.fabric.embedding:all_to_all_congestion",
     "repro_torch.fabric.model:make_fabric",

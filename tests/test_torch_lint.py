@@ -44,6 +44,9 @@ _RULE_FIXTURES = [
     ("JF002", "src/repro_torch/core/mptcp.py",
      "order = torch.argsort(x, stable=False)\n",
      "order = torch.argsort(x, stable=True)\n"),
+    ("JF002", "src/repro_torch/models/moe.py",
+     "order = torch.argsort(flat_expert, dim=1)\n",
+     "order = torch.argsort(flat_expert, dim=1, stable=True)\n"),
     ("JF003", "src/repro_torch/core/anywhere.py",
      'import os\nv = int(os.environ.get("REPRO_FOO", "1"))\n',
      'from repro_torch import env\nv = env.read("REPRO_FOO")\n'),
@@ -83,6 +86,9 @@ _RULE_FIXTURES = [
     ("JF005", "src/repro_torch/sim/events.py",
      "acc = acc.scatter_add(1, idx, vals)\n",
      "acc = _ordered_scatter_add(acc, idx, vals)\n"),
+    ("JF005", "src/repro_torch/models/moe.py",
+     "y.index_add_(1, token, contrib)\n",
+     "y = contrib.reshape(b, s, k, d).sum(2)\n"),
     ("JF006", "src/repro_torch/core/flow.py",
      ("def make_step(n_steps):\n"
       "    @torch.compile\n"
@@ -92,6 +98,9 @@ _RULE_FIXTURES = [
      ("@torch.compile\n"
       "def step(x, n_steps):\n"
       "    return x * n_steps\n")),
+    ("JF006", "src/repro_torch/models/transformer.py",
+     "def prefill(model, batch):\n    return torch.compile(model.trunk)(batch)\n",
+     "def prefill(model, batch):\n    return model.trunk(batch)\n"),
     ("JF006", "src/repro_torch/sim/engine.py",
      "def warm(cfg):\n    return torch.jit.script(lambda x: x * cfg.dt)\n",
      "@torch.jit.script\ndef warm_step(x, dt: float):\n    return x * dt\n"),
