@@ -3,9 +3,10 @@
 The port's own copy of ``repro/configs/base.py``, equal in every field and
 value.  One ``<arch>.py`` per assigned architecture registers an
 ``ArchConfig`` via ``register``.  ``reduced()`` derives the small-family
-config used by smoke tests (same block structure, tiny dims).  ``remat`` is
-kept for the training slice; serving runs no autograd, so it has no effect
-in the port.
+config used by smoke tests (same block structure, tiny dims).  ``remat``
+selects the activation checkpointing of each block in training
+(``models.transformer._remat``); serving records no graph, so it has no
+effect there.
 """
 
 from __future__ import annotations

@@ -48,9 +48,11 @@ def _greedy(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
+@torch.inference_mode()
 def generate(model, prompts: torch.Tensor, max_new: int) -> Generated:
     """Prefill ``prompts`` (B, S) and decode ``max_new`` tokens greedily
-    (the first from the prefill's logits)."""
+    (the first from the prefill's logits), under ``torch.inference_mode()``:
+    the weights are trainable, and serving records no graph on them."""
     cfg, dev = model.cfg, model.device
     prompts = prompts.to(dev)
     s = prompts.shape[1]

@@ -123,8 +123,7 @@ class Attention(nn.Module):
             self.wo.data[cfg.n_heads * hd:, :] = 0
         if cfg.qkv_bias:
             z = lambda n: nn.Parameter(  # noqa: E731
-                torch.zeros((n,), dtype=dtype, device=device),
-                requires_grad=False)
+                torch.zeros((n,), dtype=dtype, device=device))
             self.wq_b = z(hq * hd)
             self.wk_b = z(cfg.n_kv_heads * hd)
             self.wv_b = z(cfg.n_kv_heads * hd)

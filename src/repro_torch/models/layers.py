@@ -28,21 +28,22 @@ __all__ = [
 
 
 def normal(gen, shape, scale: float, dtype, device) -> nn.Parameter:
-    """A weight of ``shape`` drawn N(0, scale^2) in float32 on ``device``
-    from ``gen`` and cast to ``dtype``; empty storage when ``gen`` is None.
-    Serving needs no gradients, so the weight requires none."""
+    """A trainable weight of ``shape`` drawn N(0, scale^2) in float32 on
+    ``device`` from ``gen`` and cast to ``dtype``; empty storage when ``gen``
+    is None.  Serving runs under ``torch.inference_mode()`` and records no
+    graph (``models.prefill``, ``models.decode_step``)."""
     if gen is None:
         t = torch.empty(shape, dtype=dtype, device=device)
     else:
         t = (torch.randn(shape, generator=gen, device=device,
                          dtype=torch.float32) * scale).to(dtype)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 def const(shape, value: float, dtype, device) -> nn.Parameter:
-    """A weight of ``shape`` filled with ``value`` (zeros, ones, -6.0, ...)."""
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
-                        requires_grad=False)
+    """A trainable weight of ``shape`` filled with ``value`` (zeros, ones,
+    -6.0, ...)."""
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
 
 
 def params_of(module: nn.Module) -> dict:

@@ -122,7 +122,10 @@ def moe_apply(p, x: torch.Tensor, cfg):
     slot = torch.where(keep, se * capacity + pos_in_group, e * capacity)
 
     # dispatch into (B, E*C + 1, D); every dropped pair writes zeros to the
-    # padding slot, every kept pair its own slot
+    # padding slot, every kept pair its own slot.  The in-place scatter_
+    # writes into a buffer made here, which autograd has saved for nothing,
+    # so its backward is sound: a gather of the gradient at the same slots
+    # (the padding slot's gradient reaches only zeros).
     gathered = torch.gather(x, 1, st[..., None].expand(b, n, d))
     buf = x.new_zeros((b, e * capacity + 1, d))
     buf.scatter_(1, slot[..., None].expand(b, n, d),

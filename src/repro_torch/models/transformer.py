@@ -9,7 +9,13 @@ blocks), and the reference's public functions sit over it:
     init_cache(cfg, batch, max_len, dtype, device) -> caches
     prefill(model, batch, max_len, chunk)          -> (last_logits, caches)
     decode_step(model, caches, token, pos)         -> (logits, caches)
-    loss_fn(model, batch)                          -> (loss, metrics), forward
+    loss_fn(model, batch)                          -> (loss, metrics)
+
+``loss_fn`` is differentiable: the train step (``launch.steps``) takes its
+gradient by autograd, with each block under the activation checkpointing
+``cfg.remat`` selects (``_remat``).  ``prefill`` and ``decode_step`` serve,
+under ``torch.inference_mode()``, so they record no graph on the trainable
+weights.
 
 The hybrid with ``n_layers`` L at period P runs L // P periods of (rec, rec,
 attn) and then an (L mod P)-layer recurrent tail, as the reference's scans
@@ -26,9 +32,16 @@ prefix (frontend stub output); audio uses {"inputs_embeds": (B,S,D),
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import resolve
 from .attention import Attention, make_kv_cache
@@ -56,6 +69,37 @@ def layer_kinds(cfg) -> list[str]:
         tail = cfg.n_layers - n_periods * period
         return ["rec", "rec", "attn"] * n_periods + ["rec"] * tail
     raise ValueError(cfg.family)
+
+
+#: The products ``remat="dots"`` keeps: matrix products with no batch dim
+#: (``x @ W`` folds the batch into the rows of one ``mm``), as JAX's
+#: ``checkpoint_dots_with_no_batch_dims`` keeps its ``dot_general``s without
+#: batch dims; batched einsums (attention, experts) are recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` (one block) under the activation checkpointing ``remat``
+    selects, as the reference's ``_remat`` wraps each scanned layer:
+    ``none`` keeps every activation autograd saves; ``full`` keeps only the
+    block's inputs and recomputes the block in the backward; ``dots`` keeps
+    the outputs of the products in ``_SAVED_DOTS`` and recomputes the rest.
+    Without autograd (serving, ``torch.no_grad``) ``fn`` runs as it is."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat must be none, full or dots, not {remat!r}")
 
 
 def _window(cfg) -> int | None:
@@ -158,11 +202,12 @@ class LM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new = []
         for kind, block, cache in zip(self.kinds, self.blocks, caches):
+            run = _remat(block, cfg.remat)
             if kind == "attn":
-                x, cache, a = block(x, positions, cfg, cache, chunk)
+                x, cache, a = run(x, positions, cfg, cache, chunk)
                 aux = aux + a
             else:
-                x, cache = block(x, cache, cfg)
+                x, cache = run(x, cache, cfg)
             new.append(cache)
         return x, new, aux
 
@@ -223,7 +268,8 @@ def _embed_input(model, batch):
 
 
 def loss_fn(model: LM, batch: dict):
-    """Mean next-token CE plus the MoE aux term (forward only)."""
+    """Mean next-token CE plus the MoE aux term; autograd through it gives
+    the gradient of every weight."""
     x, labels = _embed_input(model, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -234,6 +280,7 @@ def loss_fn(model: LM, batch: dict):
     return total, {"ce": loss, "aux": aux}
 
 
+@torch.inference_mode()
 def prefill(model: LM, batch: dict, max_len: int | None = None,
             chunk: int = 1024):
     """Process the prompt, return (last-token logits, populated caches)."""
@@ -246,6 +293,7 @@ def prefill(model: LM, batch: dict, max_len: int | None = None,
     return model.logits(y)[:, 0], caches
 
 
+@torch.inference_mode()
 def decode_step(model: LM, caches: list, token: torch.Tensor, pos: int):
     """One decode step.  token (B,) int; pos the absolute position.  The
     attention layers' ring buffers in ``caches`` are written in place; the

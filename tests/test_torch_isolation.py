@@ -99,7 +99,20 @@ def test_model_stack_and_serve_modules_are_covered():
         assert m in mods
 
 
+def test_training_modules_are_covered():
+    mods = set(_modules())
+    for m in ("repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.compression", "repro_torch.optim.schedules",
+              "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+              "repro_torch.checkpoint.codec", "repro_torch.runtime",
+              "repro_torch.runtime.fault", "repro_torch.runtime.elastic",
+              "repro_torch.launch.steps", "repro_torch.launch.train"):
+        assert m in mods
+
+
 @pytest.mark.parametrize("entry", [
+    "repro_torch.launch.train:main",
     "repro_torch.models.transformer:init_params",
     "repro_torch.models.transformer:init_cache",
     "repro_torch.models.transformer:LM",
@@ -116,5 +129,9 @@ def test_model_stack_and_serve_modules_are_covered():
 ])
 def test_entry_points_default_to_the_card(entry):
     mod, name = entry.split(":")
-    fn = getattr(importlib.import_module(mod), name)
-    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    module = importlib.import_module(mod)
+    params = inspect.signature(getattr(module, name)).parameters
+    if "device" in params:
+        assert params["device"].default == "cuda"
+    else:  # a command line: its --device flag
+        assert module.parser().get_default("device") == "cuda"

@@ -69,6 +69,8 @@ def _models(arch):
 
 
 def _close(got, want, tol):
+    if isinstance(got, torch.Tensor):  # loss_fn's outputs carry a graph
+        got = got.detach()
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), **tol)
 
 
