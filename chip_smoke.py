@@ -9,9 +9,10 @@ builds with the build pipeline, ECMP, fluid MPTCP, the flow-level
 simulator with live topology events), the paper's other topology
 families, the inter-pod fabric layer (ring embedding, all-to-all
 scoring, elastic delta routing) and the model stack's serving path (four
-model families prefilling and decoding) and its training path (two
-models training) at full width on the card and prints one JSON line per
-phase:
+model families prefilling and decoding), its training path (two
+models training) and its mesh half (a sharded train step on a one-rank
+card mesh, the dry run's full-size cell) at full width on the card and
+prints one JSON line per phase:
 
 1. ``build``   compile the hand-written CUDA kernels from ``csrc/`` (one
                ``nvcc`` per source, started together).
@@ -181,6 +182,28 @@ phase:
                bit, and one step traced.  The train steps launch none of
                the kernels; the fabric tie's launches are the ``train``
                path's.  Under 90 s.
+   ``mesh``    the model stack's mesh half (``launch.mesh``,
+               ``runtime.sharding``, the sharded steps of ``launch.steps``,
+               ``launch.dryrun``): ``internvl2-1b`` at full width (bf16,
+               batch 8, sequence 128) trains two steps on
+               ``make_local_mesh()`` over the card (an NCCL mesh of one
+               rank) and two with ``mesh=None`` from the same state, equal
+               bit for bit (parameters, ``mu``, ``nu``, losses); both timed
+               (best of 3), the sharded step's peak memory and kernel
+               launches (none); one reduced arch per family (dense, MoE,
+               RWKV-6, RG-LRU hybrid) sharded on the same mesh: a train step
+               against the CPU step under the train phase's gates, a prefill
+               and a decode step (caches placed by ``cache_shardings``)
+               against ``mesh=None`` under the serve phase's bounds.  Two
+               checks run on the host's CPU beside the earlier phases, in
+               processes that do not see the card: four gloo
+               ranks at (2, 2) (a reduced dense arch's loss, gradients and
+               one AdamW step against the unsharded port; named a CPU check)
+               and the dry run's ``qwen2.5-32b x train_4k x pod16x16`` cell
+               (a fake group of 256 ranks, fake tensors), without and with
+               int8 error feedback, whose per-rank argument and peak bytes
+               are held against the card's memory and whose roofline terms
+               are printed.  Under 60 s.
 6. ``kernels`` per kernel: launches on each path (``apsp``, ``apsp_f32``,
                ``spectral``, the probe,
                ``alpha_of``, ``expansion``, ``build_batch``,
@@ -200,6 +223,7 @@ repository's ``src/repro_torch`` is not beside it.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import pathlib
@@ -2311,6 +2335,417 @@ def train_phase(dev, root, shrink=None, main_args=()) -> dict:
     return out
 
 
+MESH_BUDGET_S = 60.0
+#: The full-width sharded step: ``internvl2-1b`` (attention, MLP and vocab
+#: rules all active) at ``launch.train``'s defaults, bf16, on
+#: ``make_local_mesh()`` over the card (an NCCL mesh of one rank), two
+#: steps from the state a ``mesh=None`` step starts from.
+MESH_FULL = "internvl2-1b"
+#: One reduced arch per family on the same one-rank card mesh: a train step
+#: against the port's CPU step (the train phase's gates), a prefill and a
+#: decode step against ``mesh=None`` on the card (the serve phase's logit
+#: and cache bounds).
+MESH_FAMILIES = ("qwen2.5-32b", "qwen2-moe-a2.7b", "rwkv6-1.6b",
+                 "recurrentgemma-2b")
+#: The four-rank gloo check on the host's CPU (a (2, 2) mesh, reduced dense
+#: arch, float32): the loss rtol 1e-6, every gradient within 1e-5 of its
+#: leaf's largest magnitude, the parameters after one AdamW step at lr 1e-3
+#: within 3e-4 (tests/test_torch_sharded_steps.py's bounds).
+MESH_GLOO_ARCH = "qwen2.5-32b"
+MESH_GLOO_GRAD_REL = 1e-5
+#: The full-size dry-run cell, traced on the host in a background process
+#: (a fake group of 256 ranks, fake tensors, nothing on the card), and the
+#: same cell with int8 error feedback in a second one (its peak covers the
+#: round trip's gathered runs).
+MESH_DRYRUN = ("qwen2.5-32b", "train_4k")
+#: Seconds the background checks may still take when the phase waits.
+MESH_WAIT_S = 600.0
+
+
+def _child_env() -> dict:
+    import os
+
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+            "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+
+
+def mesh_background(root, names=("dryrun", "dryrun_int8", "gloo"),
+                    bg=None) -> dict:
+    """Start the mesh phase's CPU checks named in ``names`` (adding them to
+    ``bg``): the full-size dry-run cell (``python -m
+    repro_torch.launch.dryrun``), without and with int8 error feedback, and
+    the four-rank gloo check (this script with ``--gloo-check``).  None
+    sees the card."""
+    root.mkdir(parents=True, exist_ok=True)
+    arch, shape = MESH_DRYRUN
+    dryrun = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+              arch, "--shape", shape, "--out", str(root / "dryrun"),
+              "--force"]
+    cmds = {"dryrun": dryrun,
+            "dryrun_int8": dryrun + ["--grad-compression", "int8"],
+            "gloo": [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--gloo-check", str(root / "gloo.json")]}
+    bg = bg or {"root": root, "procs": {}}
+    for name in names:
+        log = open(root / f"{name}.log", "w")
+        bg["procs"][name] = (subprocess.Popen(
+            cmds[name], stdout=log, stderr=subprocess.STDOUT,
+            env=_child_env(), cwd=str(ROOT)), log, time.perf_counter())
+    return bg
+
+
+def mesh_stop(bg: dict) -> None:
+    """Stop whatever of the background checks still runs."""
+    for proc, log, _ in bg["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _mesh_wait(bg: dict, name: str) -> dict:
+    proc, log, t0 = bg["procs"][name]
+    rc = proc.wait(timeout=MESH_WAIT_S)
+    log.flush()
+    tail = (bg["root"] / f"{name}.log").read_text()[-3000:]
+    check(rc == 0, f"the mesh phase's {name} check exited {rc}: {tail}")
+    return {"exit": rc, "wall_s": time.perf_counter() - t0}
+
+
+def _rank_grads(model, batch, mesh, cfg):
+    """(loss, {name: gradient}) of the sharded loss, as full values."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.steps import (
+        _place_batch,
+        _sharder,
+        place_model,
+        state_shardings,
+    )
+    from repro_torch.models import loss_fn
+
+    place_model(model, state_shardings(model, mesh)[0])
+    params = dict(model.named_parameters())
+    with implicit_replication():
+        loss, _ = loss_fn(model, _place_batch(batch, mesh, cfg),
+                          _sharder(cfg, mesh))
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True, materialize_grads=True)
+    return (float(loss.full_tensor()),
+            {n: g.full_tensor() for n, g in zip(params, grads)})
+
+
+def _gloo_rank(rank: int, world: int, store: str, out: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.configs import get
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import init_params
+        from repro_torch.optim import adamw_init
+
+        cfg = get(MESH_GLOO_ARCH).reduced()
+        mesh = make_local_mesh(2, device="cpu")
+        batch = train_batch(cfg, seed=3)
+        loss, grads = _rank_grads(init_params(cfg, seed=0, device="cpu"),
+                                  batch, mesh, cfg)
+        model = init_params(cfg, seed=0, device="cpu")
+        _, _, m = make_train_step(cfg, mesh=mesh, lr=TRAIN_LR,
+                                  dtype=torch.float32)(
+            model, adamw_init(model), batch)
+        params = {n: p.full_tensor() for n, p in model.named_parameters()}
+        if rank == 0:
+            torch.save({"loss": loss, "grads": grads,
+                        "step_loss": float(m["loss"]), "params": params,
+                        "mesh": list(mesh.shape)}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_check(out_path: str) -> None:
+    """Four gloo ranks on this host's CPU at (2, 2), one reduced dense arch:
+    the sharded loss, gradients and one AdamW step against the unsharded
+    port; writes the gaps and the verdict as JSON."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import adamw_init
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(1)
+    cfg = get(MESH_GLOO_ARCH).reduced()
+    batch = train_batch(cfg, seed=3)
+    model = init_params(cfg, seed=0, device="cpu")
+    params = dict(model.named_parameters())
+    loss, _ = loss_fn(model, batch)
+    grads = dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()), allow_unused=True,
+        materialize_grads=True)))
+    model = init_params(cfg, seed=0, device="cpu")
+    _, _, m = make_train_step(cfg, lr=TRAIN_LR, dtype=torch.float32)(
+        model, adamw_init(model), batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        got_path = f"{tmp}/rank0.pt"
+        mp.spawn(_gloo_rank, args=(4, f"{tmp}/store", got_path), nprocs=4,
+                 join=True)
+        got = torch.load(got_path, weights_only=False)
+    out = {"check": "cpu", "backend": "gloo", "ranks": 4,
+           "mesh": got["mesh"], "arch": cfg.name,
+           "torch": torch.__version__,
+           "loss_rel": abs(got["loss"] / float(loss) - 1),
+           "step_loss_rel": abs(got["step_loss"] / float(m["loss"]) - 1),
+           "grad_rel": leaf_rel(got["grads"], grads),
+           "param_max_abs_err": max(
+               float((got["params"][n] - p.detach()).abs().max())
+               for n, p in model.named_parameters()),
+           "seconds": time.perf_counter() - t0}
+    out["ok"] = (out["loss_rel"] <= TRAIN_LOSS_RTOL
+                 and out["step_loss_rel"] <= TRAIN_LOSS_RTOL
+                 and out["grad_rel"] <= MESH_GLOO_GRAD_REL
+                 and out["param_max_abs_err"] <= TRAIN_PARAM_ATOL)
+    pathlib.Path(out_path).write_text(json.dumps(out))
+
+
+def _state_equal(m0, o0, m1, o1) -> dict:
+    """Bit-for-bit comparison of a plain model and ``OptState`` against a
+    sharded one (full values); the largest gaps beside it."""
+    import torch
+
+    out = {"params": True, "mu": True, "nu": True, "max_abs_err": 0.0}
+    for n, a in m0.named_parameters():
+        b = m1.get_parameter(n).full_tensor()
+        for key, x, y in (("params", a, b),
+                          ("mu", o0.mu[n], o1.mu[n].full_tensor()),
+                          ("nu", o0.nu[n], o1.nu[n].full_tensor())):
+            if not torch.equal(x, y):
+                out[key] = False
+                out["max_abs_err"] = max(
+                    out["max_abs_err"],
+                    float((x.float() - y.float()).abs().max()))
+    return out
+
+
+def mesh_full(dev, mesh, shrink=None) -> dict:
+    """``MESH_FULL`` at full width in bf16: the sharded train step on
+    ``mesh`` against ``mesh=None`` from the same state (two steps each),
+    then each timed (best of 3), with the sharded step's peak memory and
+    the port's kernel launches in its run."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    cuda = dev.type == "cuda"
+    cfg = (shrink or (lambda c: c))(get(MESH_FULL))
+    tokens = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                         seed=0).batch_at(0)["tokens"][:, :-1]
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    runs = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        model = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+        opt = adamw_init(model)
+        step = make_train_step(cfg, mesh=m, lr=3e-4, dtype=torch.bfloat16)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        losses = [float(step(model, opt, batch)[2]["loss"])
+                  for _ in range(2)]
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        runs[name] = (model, opt, losses, launches, peak, step)
+    (m0, o0, l0, _, _, s0), (m1, o1, l1, launches, peak, s1) = (
+        runs["unsharded"], runs["sharded"])
+    eq = _state_equal(m0, o0, m1, o1)
+    out = {"arch": cfg.name, "params": sum(p.numel() for p in m0.parameters()),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": "bfloat16",
+           "remat": cfg.remat, "mesh": list(mesh.shape),
+           "losses_unsharded": l0, "losses_sharded": l1,
+           "bit_equal": eq, "launches": launches,
+           "peak_allocated_bytes": peak}
+    check(l0 == l1 and eq["params"] and eq["mu"] and eq["nu"],
+          f"{cfg.name}: the one-rank sharded step left the unsharded step's "
+          f"state: losses {l0} / {l1}, {eq}")
+    check(not any(launches.values()),
+          f"the sharded step launched kernels {launches}")
+    for name, model, opt, step in (("unsharded", m0, o0, s0),
+                                   ("sharded", m1, o1, s1)):
+        times = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            step(model, opt, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_step_ms"] = times
+        out[f"{name}_best_ms"] = min(times)
+    out["sharded_over_unsharded"] = (out["sharded_best_ms"]
+                                     / out["unsharded_best_ms"])
+    del runs, m0, m1, o0, o1
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_reduced(dev, mesh, arch: str) -> dict:
+    """One reduced arch in float32 on the one-rank mesh: a sharded train
+    step against the port's CPU step (the train phase's gates), and a
+    sharded prefill and decode step (caches placed by ``cache_shardings``)
+    against ``mesh=None`` on ``dev``."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.steps import (
+        make_decode_step,
+        make_prefill_step,
+        make_train_step,
+    )
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    cfg = get(arch).reduced()
+    cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    card = _copy_model(cpu, torch.float32, dev)
+    batch = train_batch(cfg, seed=3)
+    _, oc, mc = make_train_step(cfg, lr=TRAIN_LR, dtype=torch.float32)(
+        cpu, adamw_init(cpu), batch)
+    _, og, mg = make_train_step(cfg, mesh=mesh, lr=TRAIN_LR,
+                                dtype=torch.float32)(
+        card, adamw_init(card), _on(batch, dev))
+    full = lambda d: {n: t.full_tensor() for n, t in d.items()}  # noqa: E731
+    out = {"loss_rel": abs(float(mg["loss"]) / float(mc["loss"]) - 1),
+           "grad_norm_rel": abs(float(mg["grad_norm"])
+                                / float(mc["grad_norm"]) - 1),
+           "mu_rel": leaf_rel(full(og.mu), oc.mu),
+           "nu_rel": leaf_rel(full(og.nu), oc.nu),
+           "param_max_abs_err": max(
+               float((card.get_parameter(n).full_tensor().cpu()
+                      - p.detach()).abs().max())
+               for n, p in cpu.named_parameters())}
+    rel = train_rel(arch)
+    check(out["loss_rel"] <= TRAIN_LOSS_RTOL and out["grad_norm_rel"] <= rel
+          and out["mu_rel"] <= rel and out["nu_rel"] <= 2 * rel
+          and out["param_max_abs_err"] <= TRAIN_PARAM_ATOL,
+          f"{arch}: the sharded card step against the CPU step: {out}")
+
+    plain = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    placed = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    g = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (2, SERVE_REDUCED_PROMPT),
+                           generator=g).to(dev)
+    p0 = make_prefill_step(cfg, dtype=torch.float32)
+    p1 = make_prefill_step(cfg, mesh=mesh, dtype=torch.float32)
+    d0 = make_decode_step(cfg, dtype=torch.float32)
+    d1 = make_decode_step(cfg, mesh=mesh, dtype=torch.float32)
+    l0, c0 = p0(plain, {"tokens": prompt})
+    l1, c1 = p1(placed, {"tokens": prompt})
+    tok = torch.argmax(l0[:, :cfg.vocab_size], -1)
+    gaps = [_close_or_fail(l1.full_tensor(), l0, SERVE_LOGIT_TOL,
+                           f"{arch}: sharded prefill logits")]
+    l0, c0 = d0(plain, c0, tok, SERVE_REDUCED_PROMPT)
+    l1, c1 = d1(placed, c1, tok, SERVE_REDUCED_PROMPT)
+    gaps.append(_close_or_fail(l1.full_tensor(), l0, SERVE_LOGIT_TOL,
+                               f"{arch}: sharded decode logits"))
+    cache_gap = max(_close_or_fail(b[k].full_tensor(), a[k], SERVE_CACHE_TOL,
+                                   f"{arch}: sharded cache {k}")
+                    for a, b in zip(c0, c1) for k in a)
+    out.update({"prefill_logit_rel": gaps[0], "decode_logit_rel": gaps[1],
+                "cache_rel": cache_gap,
+                "cache_placements": sorted({f"{k}:{b[k].placements}"
+                                            for b in c1 for k in b})})
+    return out
+
+
+def mesh_phase(dev, bg: dict, shrink=None) -> dict:
+    """The mesh half of the model stack: the full-width sharded train step
+    on the one-rank card mesh, one reduced arch per family sharded on it,
+    then the two background checks' results (four gloo ranks on the CPU;
+    the full-size dry-run cell)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    made = not dist.is_initialized()
+    mesh = make_local_mesh(device=dev)
+    try:
+        out = {"phase": "mesh", "backend": dist.get_backend(),
+               "mesh": list(mesh.shape), "torch": torch.__version__}
+        kernels.reset_launch_counts()
+        out["full"] = mesh_full(dev, mesh, shrink)
+        out["reduced"] = {arch: mesh_reduced(dev, mesh, arch)
+                          for arch in MESH_FAMILIES}
+        out["launches"] = kernels.launch_counts()
+        out["card_seconds"] = time.perf_counter() - t0
+    finally:
+        if made:
+            dist.destroy_process_group()
+    out["gloo_cpu_check"] = {**_mesh_wait(bg, "gloo"), **json.loads(
+        (bg["root"] / "gloo.json").read_text())}
+    check(out["gloo_cpu_check"]["ok"],
+          f"the four-rank gloo check: {out['gloo_cpu_check']}")
+    card_bytes = (torch.cuda.get_device_properties(dev).total_memory
+                  if dev.type == "cuda" else None)
+    for name, tag in (("dryrun", ""), ("dryrun_int8", "__int8")):
+        out[name] = _dryrun_cell(bg, name, tag, card_bytes)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _dryrun_cell(bg: dict, name: str, tag: str, card_bytes) -> dict:
+    """The background dry-run cell ``name``'s record; its peak a rank must
+    fit the card."""
+    out = _mesh_wait(bg, name)
+    arch, shape = MESH_DRYRUN
+    cell = json.loads((bg["root"] / "dryrun" /
+                       f"{arch}__{shape}__pod16x16{tag}.json").read_text())
+    check(cell["status"] == "ok", f"the dry-run cell: {cell}")
+    out.update({
+        "cell": f"{arch} x {shape} x {cell['mesh']}",
+        "grad_compression": cell.get("grad_compression", "none"),
+        "n_devices": cell["n_devices"], "microbatches": cell["microbatches"],
+        "trace_s": cell["trace_s"],
+        "argument_bytes_per_rank": cell["memory"]["argument_bytes"],
+        "peak_bytes_per_rank": cell["memory"]["peak_bytes"],
+        "card_bytes": card_bytes,
+        "flops_per_device": cell["op_stats"]["flops_per_device"],
+        "hbm_bytes_per_device": cell["op_stats"]["hbm_bytes_per_device"],
+        "wire_bytes_per_device": cell["op_stats"]["wire_bytes_per_device"],
+        "useful_flops_ratio": cell["useful_flops_ratio"],
+        "roofline": cell["roofline"],
+        "top_collectives": cell["op_stats"]["collectives"][:3]})
+    if card_bytes is not None:
+        check(cell["memory"]["peak_bytes"] < card_bytes,
+              f"the dry-run cell's peak {cell['memory']['peak_bytes']} B a "
+              f"rank does not fit the card's {card_bytes} B")
+    return out
+
+
 def bisection_k(elapsed: float, probes: int, probe_s: float) -> tuple:
     """The fat-tree k of a bisection that takes about ``probes`` probes of
     ``probe_s`` seconds each: K_FULL while that fits what is left of the
@@ -3180,6 +3615,13 @@ def main() -> None:
     emit(families_phase(run))
     torch.cuda.empty_cache()
 
+    # the mesh phase's dry-run cells, without and with int8 error feedback
+    # (one CPU core each, about three minutes), run from here on; the
+    # background checks are stopped when the script exits, whatever the exit
+    bg = mesh_background(ROOT / "build" / "mesh_phase",
+                         ("dryrun", "dryrun_int8"))
+    atexit.register(mesh_stop, bg)
+
     # ---- 5''. the fabric layer and the obs CLI ---------------------------- #
     out = fabric_phase(PathRun(dev, launches))
     check(out["seconds"] < FABRIC_BUDGET_S,
@@ -3195,6 +3637,10 @@ def main() -> None:
     emit({"phase": "obs", "command": "python -m repro_torch.obs smoke "
           "--device cuda", "exit": rc,
           "seconds": time.perf_counter() - t0})
+
+    # the mesh phase's four-rank gloo check runs beside the serve and train
+    # phases (the dry-run cell started before the fabric phase)
+    mesh_background(ROOT / "build" / "mesh_phase", ("gloo",), bg)
 
     # ---- 5'''. the model stack's serving path ----------------------------- #
     out = serve_phase(dev)
@@ -3219,6 +3665,14 @@ def main() -> None:
                                 for f in out["full"].values())
                          for k in steps[0]}
     emit(out)
+
+    # ---- 5'''''. the model stack's mesh half ---------------------------- #
+    out = mesh_phase(dev, bg)
+    check(out["seconds"] < MESH_BUDGET_S,
+          f"the mesh phase took {out['seconds']:.1f} s, over its "
+          f"{MESH_BUDGET_S:.0f} s budget")
+    emit(out)
+    torch.cuda.empty_cache()
 
     # ---- 6. kernels -------------------------------------------------------- #
     replaces = {
@@ -3306,4 +3760,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-check"]:
+        gloo_check(sys.argv[2])
+    else:
+        main()

@@ -17,6 +17,15 @@ place, so the copy is what keeps the checkpoint consistent); bfloat16 is
 stored as its raw 16 bits under the dtype name ``bfloat16``, as the
 reference's ``ml_dtypes`` arrays are.  ``load_pytree(target=...)`` puts
 each array on the target leaf's device and dtype.
+
+Under a mesh a leaf may be a DTensor: saving gathers its full value (every
+rank takes part; rank 0 of the process group writes), so the format stays
+the reference's and either package reads it.  ``load_pytree(...,
+shardings=)`` distributes each array onto its ``runtime.sharding.Sharding``
+(a tree matching ``target``, None where a leaf stays plain); a target leaf
+that is a DTensor and has no sharding given keeps its own placements.  A
+checkpoint saved on one mesh thus restores onto another, or into an
+unsharded model (``runtime.elastic.replan``'s reshard).
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from .codec import packb, unpackb
 
@@ -91,8 +102,11 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 def _to_host(leaf) -> tuple[str, np.ndarray]:
     """(dtype name, a host array holding the leaf's bytes); a tensor is
-    copied, so later in-place updates do not reach the checkpoint."""
+    copied, so later in-place updates do not reach the checkpoint, and a
+    DTensor's full value is gathered first."""
     if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return _BF16, t.view(torch.int16).numpy()
@@ -126,8 +140,24 @@ def _write(arrays: dict, directory: pathlib.Path, extra: dict | None):
     return directory
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the process group, if any."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _wait_for_writer() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def save_pytree(tree, directory: str | pathlib.Path, extra: dict | None = None):
-    return _write(_host_arrays(tree), pathlib.Path(directory), extra)
+    """Write ``tree``; every rank of a process group calls it (DTensors are
+    gathered), rank 0 writes and the others wait for it."""
+    arrays = _host_arrays(tree)
+    if _writer():
+        _write(arrays, pathlib.Path(directory), extra)
+    _wait_for_writer()
+    return pathlib.Path(directory)
 
 
 def _array(raw: bytes, meta: dict):
@@ -139,26 +169,44 @@ def _array(raw: bytes, meta: dict):
     return np.frombuffer(raw, dtype=np.dtype(meta["dtype"])).reshape(shape)
 
 
-def _like(arr, leaf):
+def _like(arr, leaf, sharding=None):
     """``arr`` as ``leaf`` holds it: a tensor on its device and dtype (a
-    parameter stays a parameter), else a numpy array."""
+    parameter stays a parameter), distributed by ``sharding`` or, for a
+    DTensor leaf, by the leaf's own placements; else a numpy array."""
     if isinstance(leaf, torch.Tensor):
         t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
             np.array(arr, copy=True))
         t = t.to(device=leaf.device, dtype=leaf.dtype)
+        if sharding is not None:
+            t = sharding.distribute(t)
+        elif isinstance(leaf, DTensor):
+            t = distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                  src_data_rank=None)
         if isinstance(leaf, torch.nn.Parameter):
             return torch.nn.Parameter(t, requires_grad=leaf.requires_grad)
         return t
     return arr
 
 
-def _rebuild(node, arrays: dict, prefix: str = ""):
+def _sub(shardings, key):
+    """The shardings subtree under ``key`` (None when there is none)."""
+    if shardings is None:
+        return None
+    if isinstance(shardings, dict):
+        return shardings.get(key)
+    if isinstance(shardings, (list, tuple)):
+        return shardings[key]
+    return getattr(shardings, key, None)
+
+
+def _rebuild(node, arrays: dict, prefix: str = "", shardings=None):
     if node is None:
         return None
     kids = _children(node)
     if kids is None:
-        return _like(arrays[prefix], node)
-    new = {k: _rebuild(v, arrays, f"{prefix}/{k}" if prefix else str(k))
+        return _like(arrays[prefix], node, shardings)
+    new = {k: _rebuild(v, arrays, f"{prefix}/{k}" if prefix else str(k),
+                       _sub(shardings, k))
            for k, v in kids}
     if isinstance(node, dict):
         return {k: new[k] for k in node}
@@ -167,9 +215,11 @@ def _rebuild(node, arrays: dict, prefix: str = ""):
     return dataclasses.replace(node, **new)
 
 
-def load_pytree(directory: str | pathlib.Path, target=None):
+def load_pytree(directory: str | pathlib.Path, target=None, shardings=None):
     """Load arrays; if ``target`` is given, restore its tree structure with
-    each array on the target leaf's device and dtype."""
+    each array on the target leaf's device and dtype; if ``shardings`` is
+    given (a tree of ``Sharding`` matching ``target``), each array is
+    distributed onto its sharding."""
     directory = pathlib.Path(directory)
     manifest = json.loads((directory / "manifest.json").read_text())
     blobs = unpackb(_decompress(directory))
@@ -177,7 +227,7 @@ def load_pytree(directory: str | pathlib.Path, target=None):
               for name, meta in manifest["arrays"].items()}
     if target is None:
         return arrays, manifest["extra"]
-    return _rebuild(target, arrays), manifest["extra"]
+    return _rebuild(target, arrays, shardings=shardings), manifest["extra"]
 
 
 class CheckpointManager:
@@ -204,13 +254,15 @@ class CheckpointManager:
         extra = dict(extra or {}, step=step)
 
         def job():
-            _write(arrays, self.dir_for(step), extra)
-            self._gc()
+            if _writer():
+                _write(arrays, self.dir_for(step), extra)
+                self._gc()
 
         fut = self._pool.submit(job)
         self._pending.append(fut)
         if blocking:
             fut.result()
+            _wait_for_writer()
         return fut
 
     def wait(self):
@@ -218,11 +270,11 @@ class CheckpointManager:
             f.result()
         self._pending.clear()
 
-    def restore_latest(self, target=None):
+    def restore_latest(self, target=None, shardings=None):
         steps = self.steps()
         if not steps:
             return None, None
-        return load_pytree(self.dir_for(steps[-1]), target)
+        return load_pytree(self.dir_for(steps[-1]), target, shardings)
 
     def _gc(self):
         steps = self.steps()

@@ -10,7 +10,8 @@ are a language model's weights: the reference's stacked
 parameter tree (a leading layer dim; the hybrid's ``periods`` / ``tail``)
 becomes an ``LM`` with one block per layer in absolute order, and back
 (``lm_params_to_numpy``, ``opt_state_to_numpy``).  ``reference_decay`` and
-``reference_groups`` read the stacking for the optimizer.
+``reference_groups`` read the stacking for the optimizer, and
+``reference_leaves`` for the sharding rules.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from .sim.workloads import Workload
 
 __all__ = ["lm_params_from_numpy", "lm_params_to_numpy", "opt_state_to_numpy",
            "path_system_from_numpy", "reference_decay", "reference_groups",
-           "topology_from_numpy", "workload_from_numpy"]
+           "reference_leaves", "topology_from_numpy", "workload_from_numpy"]
 
 
 def _copy(v):
@@ -240,4 +241,32 @@ def reference_groups(model) -> list:
                 out.append([str(n) for n in np.atleast_1d(v)])
 
     walk(tree)
+    return out
+
+
+def reference_leaves(model) -> dict:
+    """``{port parameter name: (path, shape, stacked)}``: the reference
+    leaf holding the parameter, by its ``/``-joined path in the reference's
+    tree (``layers/attn/wq``), that leaf's shape, and whether the leaf is
+    stacked over layers (the port's tensor is then one slice of its leading
+    dim)."""
+    params = dict(model.named_parameters())
+    names = {n: np.array(n, dtype=object) for n in params}
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            path = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                walk(v, path)
+                continue
+            group = [str(n) for n in np.atleast_1d(v)]
+            stacked = np.ndim(v) == 1
+            shape = tuple(params[group[0]].shape)
+            if stacked:
+                shape = (len(group),) + shape
+            for n in group:
+                out[n] = (path, shape, stacked)
+
+    walk(_lm_tree(model.cfg, names), "")
     return out

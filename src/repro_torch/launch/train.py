@@ -8,12 +8,14 @@
 The port of ``repro/launch/train.py``: config -> model -> train step ->
 deterministic data pipeline -> fault-tolerant loop with async checkpoints,
 and the fabric model the cross-pod collectives would ride.  ``--reduced``
-trains the small config in float32 without activation checkpointing;
-otherwise the full config trains in bfloat16 with ``cfg.remat``.  One
-device: a mesh (``--production-mesh``) waits for the mesh slice.  Weights
-come from ``torch.Generator`` seeded with ``--seed``, not ``jax.random``,
-so the two packages train different draws; the batches are the same
-(``data.SyntheticLM``).
+trains the small config in float32 without activation checkpointing and
+unsharded; otherwise the full config trains in bfloat16 with ``cfg.remat``
+on the mesh: ``--production-mesh`` (16 x 16 ranks) or, as the reference,
+``make_local_mesh()`` over the process group's world (one rank on one
+card, a group made here when none exists and destroyed at the end).
+Weights come from ``torch.Generator`` seeded with ``--seed``, not
+``jax.random``, so the two packages train different draws; the batches are
+the same (``data.SyntheticLM``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.manager import CheckpointManager
 from ..configs import get
@@ -33,7 +36,8 @@ from ..models import init_params
 from ..optim.adamw import adamw_init
 from ..optim.compression import ef_init
 from ..runtime.fault import FaultConfig, ResilientLoop
-from .steps import make_train_step
+from .mesh import make_local_mesh, make_production_mesh
+from .steps import make_train_step, place_state
 
 __all__ = ["main", "parser"]
 
@@ -73,27 +77,42 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    made_group = not dist.is_initialized()
+    try:
+        return _main(args)
+    finally:
+        if made_group and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _main(args):
     dev = resolve(args.device)
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh: the mesh is the mesh and sharding slice of "
-            "the port (ROADMAP.md, queue 1, item 4)")
     cfg = get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, remat="none" if args.reduced else cfg.remat)
 
-    fabric = make_fabric(args.fabric, n_pods=2, device=dev)
+    mesh = (make_production_mesh(device=dev) if args.production_mesh
+            else make_local_mesh(device=dev))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    fabric = make_fabric(args.fabric, n_pods=max(2, sizes.get("pod", 2)),
+                         device=dev)
     print(f"fabric: {fabric.describe()}")
-    print(f"device: {dev}  arch: {cfg.name} "
+    print(f"device: {dev}  mesh: {sizes}  arch: {cfg.name} "
           f"({cfg.param_count()/1e6:.1f}M params)")
 
     dtype = torch.float32 if args.reduced else torch.bfloat16
     model = init_params(cfg, seed=args.seed, dtype=dtype, device=dev)
     opt = adamw_init(model)
+    # On one rank the sharded step is the unsharded one bit for bit, at
+    # several times its host cost (DTensor's dispatch): the mesh is used
+    # where there are ranks to share the work.
+    step_mesh = None if args.reduced or mesh.size() == 1 else mesh
+    if step_mesh is not None:
+        place_state(model, opt, step_mesh)
     compress = args.grad_compression == "int8"
-    step_fn = make_train_step(cfg, microbatches=args.microbatches, lr=args.lr,
+    step_fn = make_train_step(cfg, mesh=step_mesh,
+                              microbatches=args.microbatches, lr=args.lr,
                               grad_compression=compress, dtype=dtype)
 
     data = SyntheticLM(cfg.vocab_size, args.seq_len, args.global_batch,

@@ -13,13 +13,29 @@ caches need no ordering assumptions.  The reference takes the float32
 accumulator of its products (``preferred_element_type``) and casts P to the
 value dtype before PV; here the operands of the score and PV products are
 upcast to float32, which gives that result in bf16 runs too.
+
+Under a mesh (``shd``, a ``runtime.sharding.Sharder``) the projections are
+DTensor products and q/k/v take the reference's signatures: heads over
+``model`` when the head count divides it ("bthd"/"btkd"), else context
+parallelism over the sequence ("bS.."/"bt..").  The attention itself runs
+on each rank's shards (``Sharder.local``): DTensor cannot split a sharded
+head dim into GQA groups that do not divide the axis, and the online
+softmax's loop would otherwise be sharded op by op.  A rank whose q heads
+read kv heads that are replicated picks them out itself.  Cache writes and
+decode attention run on the local shards of the cache's own sharding
+(``runtime.sharding.cache_shardings``): each rank writes the ring slots it
+holds, and over slot-sharded caches the softmax's max and sums are reduced
+across the slot shards.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..runtime.sharding import local_span
 from .layers import normal, params_of, rope
 
 __all__ = ["Attention", "attn_apply", "chunked_attention", "decode_attention",
@@ -129,13 +145,144 @@ class Attention(nn.Module):
             self.wv_b = z(cfg.n_kv_heads * hd)
 
     def forward(self, x, positions, cfg, cache=None, window=None,
-                chunk: int = 1024):
+                chunk: int = 1024, shd=None):
         return attn_apply(params_of(self), x, positions, cfg, cache, window,
-                          chunk)
+                          chunk, shd)
+
+
+def _split_heads(t, h: int, hd: int, shd):
+    """(B, S, h * hd) -> (B, S, h, hd).  A DTensor view cannot split a
+    feature dim sharded over an axis that ``h`` does not divide, so such a
+    dim is gathered first."""
+    if shd is not None and not shd.divisible(h):
+        t = shd.act(t, "bt.")
+    return t.reshape(t.shape[0], t.shape[1], h, hd)
+
+
+def _local_kv(k, v, hq: int, kvh: int, h0: int, hq_local: int):
+    """The kv heads a rank's q heads ``h0 .. h0 + hq_local - 1`` read, from
+    local k/v holding all ``kvh`` heads or the shard aligned with q's."""
+    if hq_local == hq or k.shape[2] < kvh:
+        return k, v
+    g = hq // kvh
+    if hq_local % g == 0:
+        heads = slice(h0 // g, (h0 + hq_local) // g)
+        return k[:, :, heads], v[:, :, heads]
+    idx = torch.arange(h0, h0 + hq_local, device=k.device) // g
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _attend(q, k, v, positions, window, chunk, shd):
+    """``chunked_attention`` over the sequence, on each rank's shards:
+    its q heads (or its q positions under context parallelism) against all
+    keys of the kv heads they read."""
+    hq, kvh, s = q.shape[2], k.shape[2], q.shape[1]
+
+    def fn(ql, kl, vl, pos):
+        assert kl.shape[1] == s, "keys must not be sharded over the sequence"
+        c = shd.coord("model")
+        h0 = c * ql.shape[2] if ql.shape[2] < hq else 0
+        kl, vl = _local_kv(kl, vl, hq, kvh, h0, ql.shape[2])
+        n = ql.shape[1]
+        qpos = pos[c * n:(c + 1) * n] if n < s else pos
+        return chunked_attention(ql, kl, vl, qpos, pos, window, chunk)
+
+    sigs = (("bthd", "btkd", "btkd") if shd.divisible(hq)
+            else ("bS..", "bt..", "bt.."))
+    return shd.local(fn, [q, k, v, positions], [*sigs, None], sigs[0])
+
+
+def _offset(buf, dim: int) -> int:
+    """This rank's first index along ``dim`` of a DTensor's shard."""
+    return local_span(buf.shape[dim], buf.device_mesh, buf.placements, dim)[0]
+
+
+@torch.no_grad()
+def _owned_write(buf, vals, positions, dim: int) -> None:
+    """Write ``vals`` (its ``dim`` running over ``positions``) into the ring
+    buffer ``buf`` (a DTensor, ``dim`` its slots): the last ``slots``
+    positions, each at slot ``position % slots``, and each rank only the
+    slots of its shard.  The written positions are consecutive (prefill's
+    0..S-1, or decode's one), so each local slot's source is found by
+    arithmetic and written by a masked ``where``: static shapes, no host
+    sync."""
+    mesh = buf.device_mesh
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in buf.placements]
+    vl = vals.redistribute(mesh, want).to_local() if isinstance(
+        vals, DTensor) else vals
+    bl = buf.to_local()
+    slots, n, lo = buf.shape[dim], bl.shape[dim], _offset(buf, dim)
+    keep = min(vals.shape[dim], slots)
+    tail = vl.narrow(dim, vl.shape[dim] - keep, keep)
+    # index into the tail of the position each local slot takes
+    t = (lo + torch.arange(n, device=bl.device)
+         - positions[-keep].long()) % slots
+    shape = [1] * bl.dim()
+    shape[dim] = n
+    src = tail.index_select(dim, t.clamp(max=keep - 1))
+    bl.copy_(torch.where((t < keep).reshape(shape), src.to(bl.dtype), bl))
+
+
+def _decode_sharded(q, cache, pos, window, shd):
+    """Decode attention on the cache's shards.  q is brought to the cache's
+    batch and head sharding; where the cache's slots are sharded, each rank
+    attends over its slots and the max, the softmax's sum and the weighted
+    values are reduced over the slot shards."""
+    mesh = shd.mesh
+    kc, vc, ap = cache["k"], cache["v"], cache["abs_pos"]
+    split = [i for i, p in enumerate(kc.placements)
+             if isinstance(p, Shard) and p.dim == 1]
+    qpl = [Replicate() if i in split else p
+           for i, p in enumerate(kc.placements)]
+    ql = q.redistribute(mesh, qpl).to_local()
+    kl, vl = kc.to_local(), vc.to_local()
+    lo, n = _offset(kc, 1), kl.shape[1]
+    apl = ap.full_tensor() if isinstance(ap, DTensor) else ap
+    apl = apl[lo:lo + n]
+    if not split:
+        out = decode_attention(ql, kl, vl, apl, pos, window)
+    else:
+        groups = [mesh.get_group(i) for i in split]
+        b, _, h, hd = ql.shape
+        kvh = kl.shape[2]
+        qg = ql.reshape(b, kvh, h // kvh, hd).float()
+        sc = torch.einsum("bkgd,bskd->bkgs", qg, kl.float()) * hd**-0.5
+        ok = (apl <= pos) & (apl >= 0)
+        if window is not None:
+            ok &= apl > (pos - window)
+        sc = torch.where(ok[None, None, None, :], sc, NEG_INF)
+        m = torch.amax(sc, dim=-1)
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        p = torch.exp(sc - m[..., None])
+        den = torch.sum(p, dim=-1)
+        acc = torch.einsum("bkgs,bskd->bkgd", p.to(vl.dtype).float(),
+                           vl.float())
+        for g in groups:
+            den = funcol.all_reduce(den, "sum", g)
+            acc = funcol.all_reduce(acc, "sum", g)
+        out = (acc / den[..., None]).reshape(b, 1, h, hd).to(ql.dtype)
+    return DTensor.from_local(out, mesh, qpl, run_check=False)
+
+
+def _attn_sharded(q, k, v, positions, cache, window, chunk, shd):
+    """The attention core and cache writes under a mesh."""
+    s = q.shape[1]
+    if cache is None:
+        return _attend(q, k, v, positions, window, chunk, shd), None
+    if s > 1:
+        out = _attend(q, k, v, positions, window, chunk, shd)
+    for name, val in (("k", k), ("v", v)):
+        _owned_write(cache[name], val, positions, 1)
+    _owned_write(cache["abs_pos"], positions.to(torch.int32), positions, 0)
+    if s == 1:
+        out = _decode_sharded(q, cache, positions[0], window, shd)
+    return out, cache
 
 
 def attn_apply(p, x, positions, cfg, cache: dict | None = None,
-               window: int | None = None, chunk: int = 1024):
+               window: int | None = None, chunk: int = 1024, shd=None):
     """x (B, S, D); positions (S,) absolute.  Returns (out (B, S, D), cache).
 
     ``cache`` is the layer's ring buffer {"k", "v", "abs_pos"}, written in
@@ -152,13 +299,27 @@ def attn_apply(p, x, positions, cfg, cache: dict | None = None,
         q = q + p["wq_b"]
         k = k + p["wk_b"]
         v = v + p["wv_b"]
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = _split_heads(q, hq, hd, shd)
+    k = _split_heads(k, cfg.n_kv_heads, hd, shd)
+    v = _split_heads(v, cfg.n_kv_heads, hd, shd)
+    if shd is not None:
+        if shd.divisible(hq):
+            # tensor parallelism over heads (kv sharding fitted automatically)
+            q = shd.act(q, "bthd")
+            k = shd.act(k, "btkd")
+            v = shd.act(v, "btkd")
+        elif s > 1:
+            # head count does not divide the model axis: context parallelism
+            q = shd.act(q, "bS..")
+            k = shd.act(k, "bt..")
+            v = shd.act(v, "bt..")
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if cache is None:
+    if shd is not None:
+        out, cache = _attn_sharded(q, k, v, positions, cache, window, chunk,
+                                   shd)
+    elif cache is None:
         out = chunked_attention(q, k, v, positions, positions, window, chunk)
     elif s == 1:
         # the slot stays a device tensor: no host sync per layer
@@ -188,6 +349,13 @@ def attn_apply(p, x, positions, cfg, cache: dict | None = None,
             cache["abs_pos"][idx] = pos32[-slot_count:]
 
     out = out.reshape(b, s, hq * hd)
+    if shd is not None and not shd.divisible(hq):
+        # gather the sequence (context parallelism) before the output
+        # projection, and keep the heads' features whole in its backward:
+        # DTensor cannot fold a batch and a sequence sharded over two mesh
+        # dims into the rows of one product, nor split a feature dim
+        # sharded over an axis the head count does not divide
+        out = shd.act(out, "bt.")
     return out @ p["wo"], cache
 
 

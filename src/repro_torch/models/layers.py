@@ -6,6 +6,12 @@ module's own parameters, see ``params_of``).  ``normal`` draws a weight on
 its device from a ``torch.Generator`` at the reference's scale; with no
 generator it leaves the storage empty for weights that are loaded next
 (``convert.lm_params_from_numpy``).
+
+Under a mesh the tensors are DTensors and ``shd`` (a
+``runtime.sharding.Sharder``) places the activations, as the reference's
+``shd.act`` calls do.  ``softmax_cross_entropy`` on vocab-sharded logits
+reduces over the vocabulary as a max and a sum of shard partials, so no
+rank gathers the whole logits (DTensor's ``logsumexp`` would).
 """
 
 from __future__ import annotations
@@ -13,10 +19,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..runtime.sharding import local_span
 
 __all__ = [
     "MLP",
     "const",
+    "embed",
     "embed_init",
     "mlp",
     "normal",
@@ -88,10 +98,13 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
     return F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
 
 
-def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp(p, x: torch.Tensor, act: str = "silu", shd=None) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU)."""
     h = x @ p["w1"]
     g = x @ p["w3"]
+    if shd is not None:
+        h = shd.act(h, "btf")
+        g = shd.act(g, "btf")
     return (_act(h, act) * g) @ p["w2"]
 
 
@@ -105,21 +118,90 @@ class MLP(nn.Module):
         self.w3 = normal(gen, (d_model, d_ff), s_in, dtype, device)
         self.w2 = normal(gen, (d_ff, d_model), s_ff, dtype, device)
 
-    def forward(self, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-        return mlp(params_of(self), x, act)
+    def forward(self, x: torch.Tensor, act: str = "silu",
+                shd=None) -> torch.Tensor:
+        return mlp(params_of(self), x, act, shd)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Under a mesh (DTensor operands) the table's
+    vocabulary rows stay sharded where the tokens are replicated: each rank
+    looks up the tokens its rows hold (zeros for the others) and the rows
+    sum over those mesh dims.  (DTensor's own rule for a vocab-sharded
+    table fails on a 2-d index.)  Elsewhere the table is gathered."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    tok_pl = tokens.placements if isinstance(tokens, DTensor) else (
+        [Replicate()] * mesh.ndim)
+    split = [isinstance(p, Shard) and p.dim == 0 and isinstance(t, Replicate)
+             for p, t in zip(table.placements, tok_pl)]
+    tab_pl = [Shard(0) if s else Replicate() for s in split]
+    out_pl = [Partial() if s else (Shard(0) if isinstance(t, Shard)
+                                   else Replicate())
+              for s, t in zip(split, tok_pl)]
+    grad_pl = [Partial() if isinstance(o, Shard) else p
+               for o, p in zip(out_pl, tab_pl)]
+    tab = table.redistribute(mesh, tab_pl)
+    lo, n = local_span(tab.shape[0], mesh, tab_pl, 0)
+    tab_l = tab.to_local(grad_placements=grad_pl)
+    tok_l = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    if n == table.shape[0]:
+        out = F.embedding(tok_l, tab_l)
+    else:
+        idx = tok_l.long() - lo
+        own = (idx >= 0) & (idx < n)
+        out = F.embedding(idx.clamp(0, n - 1), tab_l) * own[..., None].to(
+            tab_l.dtype)
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
 
 
 def embed_init(gen, vocab: int, d_model: int, dtype, device) -> nn.Parameter:
     return normal(gen, (vocab, d_model), d_model**-0.5, dtype, device)
 
 
+def _vocab_sharded(logits) -> bool:
+    """Whether the logits' vocabulary is split over ranks (a Shard on a
+    mesh dim of one rank splits nothing)."""
+    return isinstance(logits, DTensor) and any(
+        isinstance(p, Shard) and p.dim == logits.ndim - 1 and n > 1
+        for p, n in zip(logits.placements, logits.device_mesh.shape))
+
+
+def _label_logit(logits: DTensor, labels) -> DTensor:
+    """``logits[..., labels]`` over vocab-sharded logits: each rank picks
+    the labels its vocabulary shard holds (zero for the others) and the
+    picks sum over the vocabulary's mesh dims.  (DTensor's own rule for
+    ``gather`` fails on a 2-d index.)"""
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vocab = [isinstance(p, Shard) and p.dim == last for p in logits.placements]
+    lab_pl = [Replicate() if v else p
+              for v, p in zip(vocab, logits.placements)]
+    lab = (labels.redistribute(mesh, lab_pl) if isinstance(labels, DTensor)
+           else DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False).redistribute(mesh, lab_pl))
+    lo, n = local_span(logits.shape[last], mesh, logits.placements, last)
+    lg = logits.to_local()
+    idx = torch.clamp(lab.to_local(), min=0).long() - lo
+    own = (idx >= 0) & (idx < n)
+    ll = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    out_pl = [Partial() if v else p for v, p in zip(vocab, lab_pl)]
+    return DTensor.from_local(ll * own.to(ll.dtype), mesh, out_pl,
+                              run_check=False)
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           z_loss: float = 0.0) -> torch.Tensor:
     """Mean next-token CE in f32; ``labels < 0`` positions are masked out."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    if _vocab_sharded(logits):
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+        ll = _label_logit(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          torch.clamp(labels, min=0).long()[..., None])[..., 0]
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse**2

@@ -13,6 +13,14 @@ The recurrence over time is ``associative_scan``: the odd/even recursion of
 ``jax.lax.associative_scan`` written with tensor slices, so it forms the
 same products in the same order (multiplies and adds only).  Decode state is
 (h in float32, conv buffer).
+
+Under a mesh (``shd``) the gate and input branches take "btf" (the lru
+width over ``model``), as in the reference.  The causal conv (a
+concatenation and shifted slices) and the scan (strided slices written
+into place) run on each rank's shards (``Sharder.local``): both work within
+a batch row and a channel, and DTensor would reshard them op by op.  The
+gates' products are held to "btf" too, in both passes, where the reference
+leaves them to GSPMD.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime.sharding import act, run_local
 from .layers import const, normal, params_of
 
 __all__ = ["RGLRU", "associative_scan", "rglru_apply", "rglru_empty_state"]
@@ -45,8 +54,8 @@ class RGLRU(nn.Module):
         self.lru_lambda = const((dr,), 2.0, dtype, device)  # softplus ~ 2.1
         self.lru_out = normal(gen, (dr, d), dr**-0.5, dtype, device)
 
-    def forward(self, x, state):
-        return rglru_apply(params_of(self), x, state)
+    def forward(self, x, state, shd=None):
+        return rglru_apply(params_of(self), x, state, shd)
 
 
 def rglru_empty_state(cfg, batch: int, dtype, device) -> dict:
@@ -112,21 +121,31 @@ def associative_scan(elems, dim: int = 1):
     return [_interleave(e, o, dim) for e, o in zip(even, odd)]
 
 
-def rglru_apply(p, x, state: dict):
+def _scan_from(a, bx, h0):
+    """(h_t for every t) from h0 through the segments (a_t, bx_t)."""
+    A, X = associative_scan([a, bx], dim=1)
+    return A * h0[:, None, :] + X
+
+
+def rglru_apply(p, x, state: dict, shd=None):
     """x (B, S, D) -> (out (B, S, D), new_state)."""
     gate = F.gelu(x @ p["lru_gate_in"], approximate="tanh")
     y = x @ p["lru_in"]
-    y, conv_buf = _causal_conv(y, p["conv_w"], p["conv_b"], state["conv"])
-    r = torch.sigmoid(y @ p["lru_gate_a"]).float()
-    i = torch.sigmoid(y @ p["lru_gate_x"]).float()
+    gate = act(shd, gate, "btf")
+    y = act(shd, y, "btf")
+    y, conv_buf = run_local(shd, _causal_conv,
+                            [y, p["conv_w"], p["conv_b"], state["conv"]],
+                            ["btf", ".f", "f", "b.f"], ("btf", "b.f"))
+    r = torch.sigmoid(act(shd, y @ p["lru_gate_a"], "btf")).float()
+    i = torch.sigmoid(act(shd, y @ p["lru_gate_x"], "btf")).float()
     log_a = -_C * r * F.softplus(p["lru_lambda"].float())
     a = torch.exp(log_a)
     gated = i * y.float()
     mult = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     bx = mult * gated
     # segment (A, X) represents h_out = A h_in + X
-    A, X = associative_scan([a, bx], dim=1)
-    h_seq_f = A * state["h"][:, None, :] + X
+    h_seq_f = run_local(shd, _scan_from, [a, bx, state["h"]],
+                        ["btf", "btf", "bf"], "btf")
     h_fin = h_seq_f[:, -1, :]
     out = (gate * h_seq_f.to(x.dtype)) @ p["lru_out"]
     return out, {"h": h_fin, "conv": conv_buf}

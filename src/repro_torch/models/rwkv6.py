@@ -11,6 +11,15 @@ float32 in every dtype.  The time recurrence
 runs chunked (``_wkv_chunked``: T = 16 tokens a step, centred exponents,
 the +-80 clip) with every projection and the decay LoRA computed for the
 whole sequence first.  Decode is the same function at S = 1.
+
+Under a mesh the family is ``dp_only`` (the reference's §Perf R2): the
+batch is sharded over every axis and the parameters are FSDP-sharded only,
+with no ``act`` calls, as in the reference.  Every op of a layer then works
+within a batch row, so the whole layer runs on each rank's rows with its
+weights gathered (``Sharder.local``): the chunked WKV (cumsums, a masked
+``where``, the chunk loop), the group norm and the low-rank projections'
+reshapes, which DTensor would otherwise shard along the free dims it
+picks and then fail to reshape.
 """
 
 from __future__ import annotations
@@ -67,8 +76,8 @@ class RWKV(nn.Module):
         self.cm_wv = n((f, d), f**-0.5)
         self.cm_wr = n((d, d))
 
-    def forward(self, x, state, cfg):
-        return rwkv_layer_apply(params_of(self), x, state, cfg)
+    def forward(self, x, state, cfg, shd=None):
+        return rwkv_layer_apply(params_of(self), x, state, cfg, shd)
 
 
 def rwkv_empty_state(cfg, batch: int, dtype, device) -> dict:
@@ -207,10 +216,36 @@ def _channel_mix(p, x, state):
     return out, {"shift_cm": x[:, -1, :]}
 
 
-def rwkv_layer_apply(p, x, state, cfg):
-    """One full RWKV-6 layer.  x (B, S, D).  Returns (y, new_state)."""
+def _layer(p, x, state, cfg):
     h1, st_tm = _time_mix(p, rmsnorm(x, p["ln1"], cfg.norm_eps), state, cfg)
     x = x + h1
     h2, st_cm = _channel_mix(p, rmsnorm(x, p["ln2"], cfg.norm_eps), state)
     x = x + h2
     return x, {**st_tm, **st_cm}
+
+
+#: The state's leaves and their signatures (batch rows first).
+_STATE_SIGS = {"shift_tm": "b.", "shift_cm": "b.", "wkv": "b..."}
+
+
+def rwkv_layer_apply(p, x, state, cfg, shd=None):
+    """One full RWKV-6 layer.  x (B, S, D).  Returns (y, new_state).
+
+    Under a mesh (``dp_only``: the batch over every axis) the layer runs on
+    each rank's batch rows with its weights gathered (``Sharder.local``):
+    FSDP, whose weight gradients reduce over the batch's ranks."""
+    if shd is None:
+        return _layer(p, x, state, cfg)
+    names, keys = list(p), list(_STATE_SIGS)
+
+    def fn(xl, *rest):
+        y, st = _layer(dict(zip(names, rest[:len(names)])), xl,
+                       dict(zip(keys, rest[len(names):])), cfg)
+        return (y, *(st[k] for k in keys))
+
+    y, *st = shd.local(
+        fn, [x, *p.values(), *(state[k] for k in keys)],
+        ["btd", *("." * t.dim() for t in p.values()),
+         *_STATE_SIGS.values()],
+        ("btd", *_STATE_SIGS.values()))
+    return y, dict(zip(keys, st))

@@ -25,6 +25,13 @@ buffer {"k", "v", "abs_pos"} of an attention layer (written in place), the
 recurrent state of an RWKV or RG-LRU layer.  Activations run in the
 weights' dtype.
 
+Under a mesh every function takes ``shd`` (a ``runtime.sharding.Sharder``;
+None runs unsharded): the weights, the batch and the caches are DTensors
+(placed by ``launch.steps``), ``shd`` reaches every block, and the
+embedded input ("btd"), the training logits ("btv") and the decode logits
+("bv") take the reference's signatures.  Prefill places the caches it
+makes by ``runtime.sharding.cache_shardings``.
+
 Batches: {"tokens": (B,S)} for LMs; VLM adds {"inputs_embeds": (B,P,D)}
 prefix (frontend stub output); audio uses {"inputs_embeds": (B,S,D),
 "labels": (B,S)} exclusively.  Labels < 0 are masked from the loss.
@@ -35,7 +42,6 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -44,8 +50,17 @@ from torch.utils.checkpoint import (
 )
 
 from ..device import resolve
+from ..runtime.sharding import act, cache_shardings
 from .attention import Attention, make_kv_cache
-from .layers import MLP, const, embed_init, normal, rmsnorm, softmax_cross_entropy
+from .layers import (
+    MLP,
+    const,
+    embed,
+    embed_init,
+    normal,
+    rmsnorm,
+    softmax_cross_entropy,
+)
 from .moe import MoE
 from .rglru import RGLRU, rglru_empty_state
 from .rwkv6 import RWKV, rwkv_empty_state
@@ -107,6 +122,16 @@ def _window(cfg) -> int | None:
     return cfg.local_window if cfg.family == "rglru_hybrid" else cfg.window
 
 
+def _norm(x, scale, cfg, shd):
+    """The pre-norm of a sublayer.  Under a mesh its output, the projections'
+    input, is held to "btd" in both passes, and so is each sublayer's output
+    before the residual add (where the row-parallel partial sums reduce):
+    DTensor would otherwise leave the gradients sharded over d_model or the
+    sequence, which the products' backward cannot fold into rows.  The
+    reference leaves both to GSPMD."""
+    return act(shd, rmsnorm(x, scale, cfg.norm_eps), "btd")
+
+
 class DenseBlock(nn.Module):
     """Pre-norm attention + (MLP | MoE) block."""
 
@@ -121,16 +146,16 @@ class DenseBlock(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, gen, dtype, device)
         self.window = _window(cfg)
 
-    def forward(self, x, positions, cfg, cache, chunk: int = 1024):
-        h, cache = self.attn(rmsnorm(x, self.ln1, cfg.norm_eps), positions,
-                             cfg, cache, self.window, chunk)
-        x = x + h
+    def forward(self, x, positions, cfg, cache, chunk: int = 1024, shd=None):
+        h, cache = self.attn(_norm(x, self.ln1, cfg, shd), positions,
+                             cfg, cache, self.window, chunk, shd)
+        x = x + act(shd, h, "btd")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "moe":
-            h2, aux = self.moe(rmsnorm(x, self.ln2, cfg.norm_eps), cfg)
+            h2, aux = self.moe(_norm(x, self.ln2, cfg, shd), cfg, shd)
         else:
-            h2 = self.mlp(rmsnorm(x, self.ln2, cfg.norm_eps), "silu")
-        return x + h2, cache, aux
+            h2 = self.mlp(_norm(x, self.ln2, cfg, shd), "silu", shd)
+        return x + act(shd, h2, "btd"), cache, aux
 
 
 class RecBlock(nn.Module):
@@ -143,11 +168,11 @@ class RecBlock(nn.Module):
         self.rec = RGLRU(cfg, gen, dtype, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, gen, dtype, device)
 
-    def forward(self, x, state, cfg):
-        h, state = self.rec(rmsnorm(x, self.ln1, cfg.norm_eps), state)
-        x = x + h
-        h2 = self.mlp(rmsnorm(x, self.ln2, cfg.norm_eps), "gelu")
-        return x + h2, state
+    def forward(self, x, state, cfg, shd=None):
+        h, state = self.rec(_norm(x, self.ln1, cfg, shd), state, shd)
+        x = x + act(shd, h, "btd")
+        h2 = self.mlp(_norm(x, self.ln2, cfg, shd), "gelu", shd)
+        return x + act(shd, h2, "btd"), state
 
 
 class LM(nn.Module):
@@ -194,7 +219,7 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def trunk(self, x, positions, caches, chunk: int = 1024):
+    def trunk(self, x, positions, caches, chunk: int = 1024, shd=None):
         """x (B, S, D) embedded input -> (y, caches, aux).  ``caches`` holds
         one entry per layer; an attention layer's None means no cache
         (training mode)."""
@@ -204,10 +229,12 @@ class LM(nn.Module):
         for kind, block, cache in zip(self.kinds, self.blocks, caches):
             run = _remat(block, cfg.remat)
             if kind == "attn":
-                x, cache, a = run(x, positions, cfg, cache, chunk)
+                x, cache, a = run(x, positions, cfg, cache, chunk, shd)
                 aux = aux + a
             else:
-                x, cache = run(x, cache, cfg)
+                x, cache = run(x, cache, cfg, shd)
+            # the residual stream between blocks, in both passes
+            x = act(shd, x, "btd")
             new.append(cache)
         return x, new, aux
 
@@ -253,7 +280,7 @@ def _embed_input(model, batch):
     if "inputs_embeds" in batch and "tokens" in batch:  # VLM: prefix + text
         prefix = batch["inputs_embeds"].to(dtype)
         tok = batch["tokens"]
-        x = torch.cat([prefix, F.embedding(tok, model.embed).to(dtype)], 1)
+        x = torch.cat([prefix, embed(tok, model.embed).to(dtype)], 1)
         pad = torch.full(prefix.shape[:2], -1, dtype=torch.int32,
                          device=prefix.device)
         labels = torch.cat([pad, tok.to(torch.int32)], dim=1)
@@ -262,45 +289,67 @@ def _embed_input(model, batch):
         labels = batch["labels"].to(torch.int32)
     else:
         tok = batch["tokens"]
-        x = F.embedding(tok, model.embed).to(dtype)
+        x = embed(tok, model.embed).to(dtype)
         labels = tok.to(torch.int32)
     return x, labels
 
 
-def loss_fn(model: LM, batch: dict):
+def loss_fn(model: LM, batch: dict, shd=None):
     """Mean next-token CE plus the MoE aux term; autograd through it gives
     the gradient of every weight."""
     x, labels = _embed_input(model, batch)
+    x = act(shd, x, "btd")
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    y, _, aux = model.trunk(x, positions, _train_caches(model, b))
-    y = rmsnorm(y, model.final_norm, model.cfg.norm_eps)
-    loss = softmax_cross_entropy(model.logits(y)[:, :-1], labels[:, 1:])
+    y, _, aux = model.trunk(x, positions, _train_caches(model, b), shd=shd)
+    y = _norm(y, model.final_norm, model.cfg, shd)
+    logits = act(shd, model.logits(y), "btv")
+    loss = softmax_cross_entropy(logits[:, :-1], labels[:, 1:])
     total = loss + MOE_AUX_COEF * aux
     return total, {"ce": loss, "aux": aux}
 
 
-@torch.inference_mode()
+def _serving(shd):
+    """``inference_mode`` unsharded; ``no_grad`` under a mesh, where views
+    of DTensor parameters fail inside ``inference_mode`` ("Cannot set
+    version_counter for inference tensor")."""
+    return torch.inference_mode() if shd is None else torch.no_grad()
+
+
 def prefill(model: LM, batch: dict, max_len: int | None = None,
-            chunk: int = 1024):
+            chunk: int = 1024, shd=None):
     """Process the prompt, return (last-token logits, populated caches)."""
+    with _serving(shd):
+        return _prefill(model, batch, max_len, chunk, shd)
+
+
+def _prefill(model, batch, max_len, chunk, shd):
     x, _ = _embed_input(model, batch)
+    x = act(shd, x, "btd")
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     caches = init_cache(model.cfg, b, max_len or s, model.dtype, model.device)
-    y, caches, _ = model.trunk(x, positions, caches, chunk)
+    if shd is not None:
+        caches = [{k: sh[k].distribute(c[k]) for k in c} for c, sh in zip(
+            caches, cache_shardings(caches, shd.mesh, b))]
+    y, caches, _ = model.trunk(x, positions, caches, chunk, shd)
     y = rmsnorm(y[:, -1:], model.final_norm, model.cfg.norm_eps)
     return model.logits(y)[:, 0], caches
 
 
-@torch.inference_mode()
-def decode_step(model: LM, caches: list, token: torch.Tensor, pos: int):
+def decode_step(model: LM, caches: list, token: torch.Tensor, pos: int,
+                shd=None):
     """One decode step.  token (B,) int; pos the absolute position.  The
     attention layers' ring buffers in ``caches`` are written in place; the
     recurrent layers' states come back as new tensors in the returned
     list."""
-    x = F.embedding(token, model.embed)[:, None, :].to(model.dtype)
+    with _serving(shd):
+        return _decode_step(model, caches, token, pos, shd)
+
+
+def _decode_step(model, caches, token, pos, shd):
+    x = embed(token, model.embed)[:, None, :].to(model.dtype)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    y, caches, _ = model.trunk(x, positions, caches, chunk=2048)
+    y, caches, _ = model.trunk(x, positions, caches, chunk=2048, shd=shd)
     y = rmsnorm(y, model.final_norm, model.cfg.norm_eps)
-    return model.logits(y)[:, 0], caches
+    return act(shd, model.logits(y)[:, 0], "bv"), caches

@@ -16,6 +16,14 @@ twice) before it writes anything, so an error leaves the parameters and the
 state as they were; at its peak it holds the parameters, the gradients, the
 moments and those two temporaries (24 bytes a bf16 parameter).
 
+Under a mesh the parameters, the gradients and the moments are DTensors of
+one placement per parameter (the moments follow the parameters, the
+reference's "optimizer state is sharded for free"): the update is
+elementwise, so it runs the same ``torch._foreach_*`` sequence on each
+rank's shards, in place, after the global norm has been reduced over the
+whole of every tensor.  On a one-rank mesh every shard is the whole tensor
+and the step is the unsharded step, bit for bit.
+
 Weight decay falls on a leaf of rank 2 or more (``decay`` names them; by
 default a tensor's own rank decides).  The reference decides by the rank of
 its own leaves, whose per-layer weights are stacked with a leading layer
@@ -31,6 +39,7 @@ import dataclasses
 from typing import Mapping
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["OptState", "adamw_init", "adamw_update", "global_norm"]
 
@@ -60,10 +69,28 @@ def adamw_init(params) -> OptState:
     )
 
 
+def _local(t):
+    """A DTensor's shard on this rank (the tensor itself otherwise)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _spread(t) -> bool:
+    return isinstance(t, DTensor) and t.device_mesh.size() > 1
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
+    """sqrt of the sum of squares of every tensor, in float32; over DTensors
+    spread over several ranks each tensor's norm is reduced over all of it
+    (a plain tensor comes back)."""
     ts = list(tensors.values()) if isinstance(tensors, Mapping) else list(tensors)
-    norms = torch._foreach_norm(ts, 2, dtype=torch.float32)
+    if any(map(_spread, ts)):
+        norms = [torch.linalg.vector_norm(t, 2, dtype=torch.float32)
+                 for t in ts]
+        norms = [n.full_tensor() if isinstance(n, DTensor) else n
+                 for n in norms]
+    else:
+        norms = torch._foreach_norm([_local(t) for t in ts], 2,
+                                    dtype=torch.float32)
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -94,17 +121,27 @@ def adamw_update(
                              f"parameter's {tuple(p.shape)}")
         gs.append(torch.zeros_like(p) if g is None else g)
     gnorm = global_norm(gs)
+    step = state.step + 1
+    b1c = 1.0 - torch.pow(b1, step.float())
+    b2c = 1.0 - torch.pow(b2, step.float())
+    mu = [state.mu[n] for n in names]
+    nu = [state.nu[n] for n in names]
+    for n, p, g, m, v in zip(names, ps, gs, mu, nu):
+        if isinstance(p, DTensor) and not all(
+                isinstance(t, DTensor) and t.placements == p.placements
+                for t in (g, m, v)):
+            raise ValueError(f"{n}: the gradient and the moments must be "
+                             "placed as the parameter")
+    # the elementwise update on each rank's shards (the tensors themselves
+    # without a mesh)
+    ps, gs, mu, nu = ([_local(t) for t in ts] for ts in (ps, gs, mu, nu))
+    b1c, b2c = _local(b1c), _local(b2c)
     # every temporary exists before the first write below
     g32 = [g.to(torch.float32, copy=True) for g in gs]
     tmp = [torch.empty_like(g) for g in g32]
     if clip_norm is not None:
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         torch._foreach_mul_(g32, scale)
-    step = state.step + 1
-    b1c = 1.0 - torch.pow(b1, step.float())
-    b2c = 1.0 - torch.pow(b2, step.float())
-    mu = [state.mu[n] for n in names]
-    nu = [state.nu[n] for n in names]
     hit = [i for i, (n, p) in enumerate(zip(names, ps))
            if (decay[n] if decay is not None else p.dim() >= 2)]
 

@@ -610,3 +610,44 @@ def test_serving_path_on_card_equals_cpu(dev, arch):
         lg, cg = decode_step(card, cg, tg, 24 + i)
         assert torch.allclose(lg.cpu(), lc, **tol)
     assert not any(kernels.launch_counts().values())
+
+
+def test_one_rank_card_mesh_step_equals_unsharded(dev):
+    """The sharded train step on ``make_local_mesh()`` over the card (an
+    NCCL mesh of one rank) against ``mesh=None`` from the same weights:
+    two steps, parameters, ``mu`` and ``nu`` bit for bit (one rank: no
+    collective reorders a sum)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    cfg = get("internvl2-1b").reduced()
+    g = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32),
+                                     generator=g).to(dev)}
+    assert not dist.is_initialized()
+    try:
+        mesh = make_local_mesh()
+        assert dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+        runs = []
+        for m in (None, mesh):
+            model = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+            opt = adamw_init(model)
+            step = make_train_step(cfg, mesh=m, lr=1e-3, dtype=torch.float32)
+            for _ in range(2):
+                _, opt, metrics = step(model, opt, batch)
+            runs.append((model, opt, float(metrics["loss"])))
+        (m0, o0, l0), (m1, o1, l1) = runs
+        assert l0 == l1
+        for (n, a), (_, b) in zip(m0.named_parameters(),
+                                  m1.named_parameters()):
+            assert torch.equal(a, b.full_tensor()), n
+            assert torch.equal(o0.mu[n], o1.mu[n].full_tensor()), n
+            assert torch.equal(o0.nu[n], o1.nu[n].full_tensor()), n
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -111,8 +111,21 @@ def test_training_modules_are_covered():
         assert m in mods
 
 
+def test_mesh_and_dryrun_modules_are_covered():
+    mods = set(_modules())
+    for m in ("repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+              "repro_torch.runtime.sharding", "repro_torch.roofline",
+              "repro_torch.roofline.analysis", "repro_torch.roofline.op_stats",
+              "repro_torch.roofline.report"):
+        assert m in mods
+
+
 @pytest.mark.parametrize("entry", [
     "repro_torch.launch.train:main",
+    "repro_torch.launch.mesh:make_production_mesh",
+    "repro_torch.launch.mesh:make_local_mesh",
+    "repro_torch.launch.mesh:make_fabric_aware_mesh",
+    "repro_torch.launch.mesh:world_size",
     "repro_torch.models.transformer:init_params",
     "repro_torch.models.transformer:init_cache",
     "repro_torch.models.transformer:LM",

@@ -448,9 +448,11 @@ def test_non_finite_loss_applies_no_update():
 
 
 def test_steps_refuse_a_mesh_and_a_mismatched_model():
+    """A mesh must be a ``DeviceMesh`` (the sharded steps themselves are
+    held against the unsharded ones in ``test_torch_sharded_steps.py``)."""
     cfg = configs.get("rwkv6-1.6b").reduced()
     for make in (make_train_step, make_prefill_step, make_decode_step):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make(cfg, mesh=object())
     model = init_params(cfg, seed=0, device="cpu")
     step = make_train_step(cfg, dtype=torch.bfloat16)
@@ -510,8 +512,10 @@ def test_train_main_on_the_cpu(arch, extra, tmp_path):
 def test_train_main_refuses_a_production_mesh_and_a_missing_card(tmp_path):
     args = ["--arch", "rwkv6-1.6b", "--reduced", "--steps", "1",
             "--checkpoint-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the production mesh needs 256 ranks; this process is a world of one
+    with pytest.raises(ValueError, match="world of 256 ranks"):
         train.main([*args, "--device", "cpu", "--production-mesh"])
+    assert not torch.distributed.is_initialized()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train.main(args)
