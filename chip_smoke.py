@@ -11,8 +11,9 @@ families, the inter-pod fabric layer (ring embedding, all-to-all
 scoring, elastic delta routing) and the model stack's serving path (four
 model families prefilling and decoding), its training path (two
 models training) and its mesh half (a sharded train step on a one-rank
-card mesh, the dry run's full-size cell) at full width on the card and
-prints one JSON line per phase:
+card mesh, the dry run's full-size cell) at full width on the card, audits
+every registered solver entry at the dispatch level on the card and runs
+the expand-cluster example there, and prints one JSON line per phase:
 
 1. ``build``   compile the hand-written CUDA kernels from ``csrc/`` (one
                ``nvcc`` per source, started together).
@@ -204,12 +205,28 @@ prints one JSON line per phase:
                int8 error feedback, whose per-rank argument and peak bytes
                are held against the card's memory and whose roofline terms
                are printed.  Under 60 s.
-6. ``kernels`` per kernel: launches on each path (``apsp``, ``apsp_f32``,
+   ``ir``      the dispatch-level audit (``repro_torch.analysis.irlint``,
+               JF100-JF105 less the CPU-only budgets) on the card over every
+               registered case: no finding beyond the recorded exemptions,
+               every kernel, wrapper and dense solver case moving the launch
+               counters it names, each case's aten ops and launches
+               printed; then RT-1 (``analysis.retrace``): one MW batch run a
+               second time builds no kernel and equals the first run.
+   ``examples``  ``examples/expand_cluster_torch.py`` at its own sizes (64
+               -> 80 pods in 4-pod tranches with MW at 200 iterations, 5 %
+               of the links failed, a pod lost) on the card, against a CPU
+               run of the same code: descriptions, path systems (by
+               digest), spliced shares, ring, mesh re-plans and the restore
+               equal, MW alphas within ``EXAMPLE_ALPHA_RTOL``.  The two
+               phases aim under 30 s together.
+6. ``time``    the script's seconds so far beside its aim.
+   ``kernels`` per kernel: launches on each path (``apsp``, ``apsp_f32``,
                ``spectral``, the probe,
                ``alpha_of``, ``expansion``, ``build_batch``,
                ``probe_sequential``, ``ecmp``, ``mptcp``, ``sim``, the
                bisection and both wave bisections, ``events``,
-               ``families``, ``fabric``, ``train``, each run with
+               ``families``, ``fabric``, ``train``, ``ir``, ``examples``,
+               each run with
                the counts set to 0 just before it and read just after; each
                kernel must be launched by the paths that use it), largest
                difference from the plain version, and the times of phase 2
@@ -2746,6 +2763,131 @@ def _dryrun_cell(bg: dict, name: str, tag: str, card_bytes) -> dict:
     return out
 
 
+#: The ``ir`` and ``examples`` phases together aim under this.
+IR_EXAMPLES_BUDGET_S = 30.0
+#: Each MW solve of the expand-cluster chain on the card against the same
+#: solve on the CPU from the same path system and warm start.  The card's
+#: dense kernel and the CPU's plain product sum in different orders, and
+#: the anneal amplifies that.  At the example's 200 iterations the spread
+#: between two summation orders is wider than the 5e-3 that
+#: ``tests/test_torch_flow.py`` states for 400: the phase prints the CPU's
+#: own dense-against-gather gap on each solve (``cpu_order_rel``), which
+#: this bound must cover.  Independently of any order, no MW alpha may
+#: exceed the path LP's optimum (MW's best iterate is a feasible routing).
+#: The chain's own alphas are not held to it: each solve starts from the
+#: previous one's rates, so one solve's drift moves the next one's start
+#: (``chain_alpha_max_rel`` reports the gap).
+EXAMPLE_ALPHA_RTOL = 1e-2
+
+
+def ir_phase(dev) -> dict:
+    """The dispatch-level audit (``python -m repro_torch.analysis ir``) on
+    the card over every registered case: no finding beyond the recorded
+    exemptions, every kernel, wrapper and dense solver case moved the launch
+    counters it names (the kernels launch through ``ctypes``, unseen by the
+    dispatcher), each case's aten ops and launches printed; then RT-1: one
+    MW batch run a second time inside ``retrace.track_compiles()`` builds
+    no kernel, leaves ``solver_cache_sizes()`` as it was and equals the
+    first run bit for bit."""
+    import numpy as np
+
+    from repro_torch.analysis import irlint, retrace
+    from repro_torch.analysis.registry import registered_entries
+    from repro_torch.core import mw_concurrent_flow_batch
+    from repro_torch.core.flow import _audit_systems
+
+    t0 = time.perf_counter()
+    findings, rows = irlint.audit_entries(registered_entries(), dev)
+    check(not findings, "ir audit on the card: "
+          + "; ".join(str(f) for f in findings))
+    for row in rows:
+        for name in row["kernels"]:
+            check(row["launches"].get(name, 0) > 0,
+                  f"{row['entry']}[{row['case']}] launched no {name} kernel")
+    audit_s = time.perf_counter() - t0
+    systems = list(_audit_systems())
+    first = mw_concurrent_flow_batch(systems, iters=50, device=dev)
+    sizes = retrace.solver_cache_sizes()
+    with retrace.track_compiles() as builds:
+        again = mw_concurrent_flow_batch(systems, iters=50, device=dev)
+    check(builds.count == 0,
+          f"RT-1: a second same-bucket MW batch built {builds.events}")
+    check(retrace.solver_cache_sizes() == sizes,
+          "RT-1: solver_cache_sizes() changed on a same-bucket rerun")
+    check(all(a.alpha == b.alpha and np.array_equal(a.rates, b.rates)
+              for a, b in zip(first, again)),
+          "RT-1: the same-bucket rerun differs from the first run")
+    return {"phase": "ir", "findings": len(findings), "cases": [
+        {k: r[k] for k in ("entry", "case", "kind", "aten_ops", "launches",
+                           "exempt")} for r in rows],
+        "audit_seconds": audit_s, "rt1_builds": builds.count,
+        "rt1_backend": first[0].method,
+        "seconds": time.perf_counter() - t0}
+
+
+def examples_phase(dev, root) -> dict:
+    """``examples/expand_cluster_torch.py`` at the example's own sizes (a
+    64-pod Jellyfish fabric grown to 80 pods in 4-pod tranches with MW at
+    200 iterations warm-started across each delta, 5 % of its links
+    failed, a pod lost, the ring re-embedded, the mesh re-planned, a
+    checkpoint restored) on the card, held against a CPU run of the same
+    code: descriptions, path systems (by digest), spliced shares, ring,
+    mesh plans and the restore equal; each of the card's MW solves within
+    ``EXAMPLE_ALPHA_RTOL`` of the same solve on the CPU from the same path
+    system and warm start."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.core import lp_concurrent_flow, mw_concurrent_flow
+
+    path = ROOT / "examples" / "expand_cluster_torch.py"
+    spec = importlib.util.spec_from_file_location("expand_cluster_torch",
+                                                  path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    runs, secs = {}, {}
+    for key, name in (("card", dev.type), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[key] = example.main(["--device", name, "--checkpoint-dir",
+                                      str(root / key)])
+        secs[key] = time.perf_counter() - t0
+    gpu, cpu = runs["card"], runs["cpu"]
+    for key in ("describe", "mesh", "replan", "ring", "restored"):
+        check(gpu[key] == cpu[key], f"examples: {key} differs on the card: "
+              f"{gpu[key]} != {cpu[key]}")
+    check(gpu["restored"]["equal"], "examples: the restore differs")
+    chain = 0.0
+    for g, c in zip(gpu["routing"], cpu["routing"], strict=True):
+        for key in ("switches", "n_paths", "digest", "spliced"):
+            check(g[key] == c[key], f"examples: {key} differs on the card at "
+                  f"{g['switches']} switches: {g[key]} != {c[key]}")
+        chain = max(chain, abs(g["alpha"] - c["alpha"]) / abs(c["alpha"]))
+    rows = []
+    for g, solve in zip(gpu["routing"], gpu["solves"], strict=True):
+        ps, alpha = solve["system"], solve["flow"].alpha
+        ref, alt = (mw_concurrent_flow(ps, iters=200, warm=solve["warm"],
+                                       backend=b, device="cpu")
+                    for b in ("dense", "gather"))
+        lp = lp_concurrent_flow(ps).alpha
+        rel = abs(alpha - ref.alpha) / abs(ref.alpha)
+        check(rel <= EXAMPLE_ALPHA_RTOL,
+              f"examples: MW alpha on the card at {g['switches']} switches "
+              f"{rel:.2e} from the CPU's from the same start, over "
+              f"{EXAMPLE_ALPHA_RTOL}")
+        check(alpha <= lp * (1 + 1e-6), f"examples: MW alpha {alpha} on the "
+              f"card at {g['switches']} switches above the LP optimum {lp}")
+        rows.append({**g, "backend": solve["flow"].method,
+                     "cpu_alpha_same_start": ref.alpha, "alpha_rel": rel,
+                     "cpu_order_rel": abs(alt.alpha - ref.alpha)
+                     / abs(ref.alpha), "lp_alpha": lp})
+    return {"phase": "examples", "example": "examples/expand_cluster_torch.py",
+            "routing": rows, "ring": gpu["ring"],
+            "chain_alpha_max_rel": chain,
+            "card_seconds": secs["card"], "cpu_seconds": secs["cpu"]}
+
+
 def bisection_k(elapsed: float, probes: int, probe_s: float) -> tuple:
     """The fat-tree k of a bisection that takes about ``probes`` probes of
     ``probe_s`` seconds each: K_FULL while that fits what is left of the
@@ -3674,6 +3816,17 @@ def main() -> None:
     emit(out)
     torch.cuda.empty_cache()
 
+    # ---- 5. the dispatch-level audit and the examples ---------------- #
+    t_ir = time.perf_counter()
+    out, _ = PathRun(dev, launches)("ir", lambda: ir_phase(dev))
+    emit(out)
+    out, _ = PathRun(dev, launches)(
+        "examples", lambda: examples_phase(dev, ROOT / "build" /
+                                           "examples_phase"))
+    emit(out)
+    ir_examples_s = time.perf_counter() - t_ir
+    torch.cuda.empty_cache()
+
     # ---- 6. kernels -------------------------------------------------------- #
     replaces = {
         "congestion": "src/repro/kernels/congestion.py:78",
@@ -3720,6 +3873,8 @@ def main() -> None:
         "events": ("congestion_batch", apsp_kernel(512), "admission"),
         "families": ("congestion", apsp_kernel(484), "admission"),
         "fabric": (apsp_kernel(FABRIC_CHAIN_PODS), "admission"),
+        "ir": tuple(replaces),
+        "examples": ("congestion", apsp_kernel(80), "admission"),
         "bisection_wave_on": ("congestion_batch",
                               apsp_kernel(fattree_equipment(k_wave)[
                                   "switches"]), "admission"),
@@ -3746,6 +3901,9 @@ def main() -> None:
                      "library_ms": r["library_ms"],
                      **{k: r[k] for k in ("fp32_bound_ms", "dpx_bound_ms")
                         if k in r}})
+    emit({"phase": "time", "seconds": time.perf_counter() - t_start,
+          "aim_s": TIME_BUDGET_S, "ir_examples_seconds": ir_examples_s,
+          "ir_examples_aim_s": IR_EXAMPLES_BUDGET_S})
     emit({"kernels": rows})
 
     smi = subprocess.run(

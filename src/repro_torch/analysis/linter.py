@@ -38,9 +38,10 @@ JF006  No ``torch.compile`` / ``torch.jit.script`` / ``torch.jit.trace``
 A finding can be suppressed per line with ``# repro-lint: disable=JF00X``
 (comma-separate to suppress several rules), with the reason after it.
 Pragma ids are validated: an unknown id is itself a violation (JF000).  The
-known ids are the reference's: the rules above and its IR rules
-JF100-JF105, so a pragma here never trips the reference's own JF000.  Pure
-stdlib (``ast``): ``python -m repro_torch.analysis`` needs no torch.
+known ids are the rules above and the IR audit's JF100-JF105
+(``registry.IR_RULES``), the reference's ids, so a pragma here never trips
+the reference's own JF000.  Pure stdlib (``ast``): ``python -m
+repro_torch.analysis`` needs no torch.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ import io
 import os
 import re
 import tokenize
+
+from .registry import IR_RULES
 
 __all__ = ["KNOWN_RULE_IDS", "RULES", "Violation", "lint_file", "lint_paths",
            "lint_source"]
@@ -65,11 +68,10 @@ RULES = {
     "JF006": "no torch.compile created inside a function body in solver modules",
 }
 
-#: The reference's IR-audit rule ids (``repro/analysis/registry.py``
-#: ``IR_RULES``): valid pragma targets there, so valid here.
-IR_RULE_IDS = ("JF100", "JF101", "JF102", "JF103", "JF104", "JF105")
-
-KNOWN_RULE_IDS = frozenset(RULES) | frozenset(IR_RULE_IDS)
+#: Ids a disable pragma may name: every AST rule plus the IR
+#: audit's rules (``registry.IR_RULES``, the reference's ids, so a pragma
+#: here never trips the reference's own JF000).
+KNOWN_RULE_IDS = frozenset(RULES) | frozenset(IR_RULES)
 
 _PRAGMA_RE = re.compile(r"repro-lint:\s*disable=(\S+)")
 

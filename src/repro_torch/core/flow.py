@@ -57,6 +57,7 @@ LP-vs-MW cutoff from its 20000-path default.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Sequence
 
@@ -65,6 +66,7 @@ import torch
 
 from .. import env
 from .. import obs
+from ..analysis.registry import AuditCase, solver_entry
 from ..analysis.contracts import check_path_system_batch, checks_enabled
 from ..device import resolve
 from ..kernels import ops
@@ -229,7 +231,7 @@ def _fill_incidence(out: torch.Tensor, path_edges: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
-def make_congestion_fn(
+def make_congestion_fn(  # repro-lint: disable=JF100 builds fused, run by entries
     path_edges: torch.Tensor,
     n_slots: int,
     backend: str,
@@ -271,7 +273,7 @@ def make_congestion_fn(
     return fused
 
 
-def make_congestion_fn_batch(
+def make_congestion_fn_batch(  # repro-lint: disable=JF100 builds fused, run by entries
     path_edges: torch.Tensor,
     n_slots: int,
     n_batch: int,
@@ -337,7 +339,7 @@ def make_congestion_fn_batch(
     return fused
 
 
-def make_loads_fn_batch(
+def make_loads_fn_batch(  # repro-lint: disable=JF100 builds loads_of, run by entries
     path_edges: torch.Tensor,
     n_slots: int,
     n_batch: int,
@@ -450,6 +452,7 @@ def _make_seg_norm(owner: torch.Tensor, owner_cols: list, dummy: bool):
     return seg_norm
 
 
+@solver_entry(spec="_ir_cases_mw_steps")
 def _mw_steps(fused, seg_norm, carry, t_lo, t_hi, dem, inv, slot_valid,
               frac, eta, active=None):
     """Steps ``t_lo .. t_hi - 1`` of the lagged MW recurrence.
@@ -492,6 +495,7 @@ def _mw_steps(fused, seg_norm, carry, t_lo, t_hi, dem, inv, slot_valid,
     return x, rel_prev, best_alpha, best_x
 
 
+@solver_entry(spec="_ir_cases_mw_final")
 def _mw_final(fused, carry, dem, inv):
     """One exact evaluation of the last iterate, then the best-iterate
     result: ``(best_alpha, best_rates, 1 / best_alpha)``."""
@@ -544,6 +548,31 @@ def _adaptive_done(best: float, state: dict, target_alpha, early_stop,
     return None
 
 
+def _seq_setup(ps: PathSystem, backend: str, x_init: np.ndarray,
+               dev: torch.device) -> tuple:
+    """A sequential solve's operands on ``dev``: ``(fused, seg_norm, carry,
+    dem, inv_cap)``, the carry started from the split ``x_init``."""
+    S, K = ps.n_slots, ps.n_commodities
+    pe = torch.as_tensor(np.asarray(ps.path_edges, np.int32), device=dev)
+    owner = torch.as_tensor(np.asarray(ps.path_owner, np.int64), device=dev)
+    demands = torch.as_tensor(np.asarray(ps.demands, np.float32), device=dev)
+    inv_cap = torch.as_tensor(
+        np.asarray(1.0 / ps.capacities, dtype=np.float32), device=dev
+    )
+    slot_tab = None
+    if backend == "gather":
+        slot_tab, _ = PathSystemBatch._slot_table(np.asarray(ps.path_edges), S)
+    owner_tab = PathSystemBatch._owner_table(
+        np.asarray(ps.path_owner), K, ps.n_paths
+    )
+    fused = make_congestion_fn(pe, S, backend, slot_tab)
+    seg_norm = _make_seg_norm(owner, _columns(owner_tab, dev), dummy=False)
+    x0 = seg_norm(torch.as_tensor(x_init, dtype=_F32, device=dev))
+    carry = (x0, torch.zeros_like(inv_cap),
+             torch.tensor(0.0, dtype=_F32, device=dev), x0)
+    return fused, seg_norm, carry, demands[owner], inv_cap
+
+
 def mw_concurrent_flow(
     ps: PathSystem,
     iters: int = 400,
@@ -581,26 +610,9 @@ def mw_concurrent_flow(
         x_init = _warm_split(ps, warm)
     else:
         x_init = np.ones(ps.n_paths, dtype=np.float32)
-    S, K = ps.n_slots, ps.n_commodities
-    pe = torch.as_tensor(np.asarray(ps.path_edges, np.int32), device=dev)
-    owner = torch.as_tensor(np.asarray(ps.path_owner, np.int64), device=dev)
-    demands = torch.as_tensor(np.asarray(ps.demands, np.float32), device=dev)
-    inv_cap = torch.as_tensor(
-        np.asarray(1.0 / ps.capacities, dtype=np.float32), device=dev
-    )
-    slot_tab = None
-    if backend == "gather":
-        slot_tab, _ = PathSystemBatch._slot_table(np.asarray(ps.path_edges), S)
-    owner_tab = PathSystemBatch._owner_table(
-        np.asarray(ps.path_owner), K, ps.n_paths
-    )
-    fused = make_congestion_fn(pe, S, backend, slot_tab)
-    seg_norm = _make_seg_norm(owner, _columns(owner_tab, dev), dummy=False)
-    dem = demands[owner]
+    fused, seg_norm, carry, dem, inv_cap = _seq_setup(ps, backend, x_init,
+                                                       dev)
     frac, eta = _schedule(iters, dev)
-    x0 = seg_norm(torch.as_tensor(x_init, dtype=_F32, device=dev))
-    carry = (x0, torch.zeros_like(inv_cap),
-             torch.tensor(0.0, dtype=_F32, device=dev), x0)
     adaptive = early_stop or target_alpha is not None
     if not adaptive:
         carry = _mw_steps(fused, seg_norm, carry, 0, iters, dem, inv_cap,
@@ -882,6 +894,41 @@ def _empty_path_system() -> PathSystem:
     )
 
 
+def _batch_setup(batch: PathSystemBatch, backend: str, x_init: np.ndarray,
+                 dev: torch.device) -> tuple:
+    """A batched solve's operands on ``dev``: ``(fused, seg_norm, carry,
+    dem, inv_cap, slot_valid)``, the carry started from the (B, P) split
+    ``x_init``."""
+    B = batch.n_batch
+    pe = torch.as_tensor(batch.path_edges, device=dev)
+    owner = torch.as_tensor(batch.path_owner.astype(np.int64), device=dev)
+    demands = torch.as_tensor(batch.demands, device=dev)
+    inv_cap = torch.as_tensor(batch.inv_cap, device=dev)
+    slot_valid = torch.as_tensor(batch.slot_valid, device=dev)
+    if not batch.shared:
+        dem = torch.gather(demands, 1, owner)
+    else:
+        dem = demands[:, owner]
+        inv_cap = inv_cap[None, :]
+        slot_valid = slot_valid[None, :]
+    fused = make_congestion_fn_batch(
+        pe, batch.s_max, B, backend,
+        batch.slot_gather if backend == "gather" else None,
+        extents=None if batch.shared else (
+            batch.n_paths, [ps.n_slots for ps in batch.systems]),
+    )
+    seg_norm = _make_seg_norm(owner, _columns(batch.owner_gather, dev),
+                              dummy=not batch.shared)
+    x0 = seg_norm(torch.as_tensor(x_init, device=dev))
+    carry = (
+        x0,
+        torch.zeros((B, batch.s_max), dtype=_F32, device=dev),
+        torch.zeros(B, dtype=_F32, device=dev),
+        x0,
+    )
+    return fused, seg_norm, carry, dem, inv_cap, slot_valid
+
+
 def mw_concurrent_flow_batch(
     systems: "PathSystemBatch | Sequence[PathSystem]",
     iters: int = 400,
@@ -936,33 +983,9 @@ def mw_concurrent_flow_batch(
         for i, (ps, w) in enumerate(zip(batch.systems, warm)):
             if w is not None and ps.row_map is not None and ps.n_paths:
                 x_init[i, : ps.n_paths] = _warm_split(ps, w)
-    pe = torch.as_tensor(batch.path_edges, device=dev)
-    owner = torch.as_tensor(batch.path_owner.astype(np.int64), device=dev)
-    demands = torch.as_tensor(batch.demands, device=dev)
-    inv_cap = torch.as_tensor(batch.inv_cap, device=dev)
-    slot_valid = torch.as_tensor(batch.slot_valid, device=dev)
-    if not batch.shared:
-        dem = torch.gather(demands, 1, owner)
-    else:
-        dem = demands[:, owner]
-        inv_cap = inv_cap[None, :]
-        slot_valid = slot_valid[None, :]
-    fused = make_congestion_fn_batch(
-        pe, batch.s_max, B, backend,
-        batch.slot_gather if backend == "gather" else None,
-        extents=None if batch.shared else (
-            batch.n_paths, [ps.n_slots for ps in batch.systems]),
-    )
-    seg_norm = _make_seg_norm(owner, _columns(batch.owner_gather, dev),
-                              dummy=not batch.shared)
+    fused, seg_norm, carry, dem, inv_cap, slot_valid = _batch_setup(
+        batch, backend, x_init, dev)
     frac, eta = _schedule(iters, dev)
-    x0 = seg_norm(torch.as_tensor(x_init, device=dev))
-    carry = (
-        x0,
-        torch.zeros((B, batch.s_max), dtype=_F32, device=dev),
-        torch.zeros(B, dtype=_F32, device=dev),
-        x0,
-    )
     done = np.zeros(B, dtype=np.int64)
     active = ~empty
     adaptive = early_stop or target_alpha is not None
@@ -1159,3 +1182,105 @@ def throughput(ps: PathSystem, method: str = "auto", iters: int = 400,
             )
             return mw_concurrent_flow(ps, iters=iters, device=device)
     return mw_concurrent_flow(ps, iters=iters, device=device)
+
+
+# ---- IR audit cases (python -m repro_torch.analysis ir) ------------------- #
+
+_IR_ITERS, _IR_STEPS = 10, 4  # anneal horizon, steps run by a case
+
+_IR_DENSE_EXEMPT = {
+    "JF101": "dense backend contracts through the incidence product by "
+    "design (the congestion kernel on CUDA, the plain product on the CPU); "
+    "its reassociation drift against gather is a documented contract "
+    "(CG-3), not a bug",
+}
+
+
+@functools.cache
+def _audit_systems() -> tuple:
+    """Two tiny seeded path systems (Jellyfish of 12 and 10 switches, 5
+    ports, 3 network links each; k = 3 paths of a random permutation),
+    built on the CPU once: the audit cases' shared inputs."""
+    from .jellyfish import jellyfish
+    from .routing import build_path_system
+    from .traffic import random_permutation_traffic
+
+    out = []
+    for n, seed in ((12, 1), (10, 2)):
+        top = jellyfish(n, 5, 3, seed=seed)
+        comm = random_permutation_traffic(top, seed=seed + 7)
+        out.append(build_path_system(top, comm, k=3, device="cpu"))
+    return tuple(out)
+
+
+def _ir_split(n_rows, seed: int) -> np.ndarray:
+    """A seeded positive start split (uniform in [0.5, 1.5))."""
+    return np.random.default_rng(seed).uniform(
+        0.5, 1.5, n_rows).astype(np.float32)
+
+
+def _ir_seq(dev: torch.device, backend: str) -> tuple:
+    """``_mw_steps`` arguments over the first audit system, as
+    ``mw_concurrent_flow`` builds them."""
+    ps = _audit_systems()[0]
+    fused, seg_norm, carry, dem, inv = _seq_setup(
+        ps, backend, _ir_split(ps.n_paths, 0), dev)
+    frac, eta = _schedule(_IR_ITERS, dev)
+    return fused, seg_norm, carry, dem, inv, None, frac, eta, None
+
+
+def _ir_batch(dev: torch.device, backend: str) -> tuple:
+    """``_mw_steps`` arguments over both audit systems stacked, as
+    ``mw_concurrent_flow_batch`` builds them."""
+    batch = PathSystemBatch.from_systems(list(_audit_systems()))
+    x_init = np.ones((batch.n_batch, batch.p_max), np.float32)
+    for i, ps in enumerate(batch.systems):
+        x_init[i, : ps.n_paths] = _ir_split(ps.n_paths, i)
+    fused, seg_norm, carry, dem, inv, sval = _batch_setup(batch, backend,
+                                                          x_init, dev)
+    frac, eta = _schedule(_IR_ITERS, dev)
+    return (fused, seg_norm, carry, dem, inv, sval, frac, eta,
+            torch.ones(batch.n_batch, dtype=torch.bool, device=dev))
+
+
+def _ir_cases_mw_steps():
+    def mk(setup, backend):
+        def make(dev):
+            (fused, seg_norm, carry, dem, inv, sval, frac, eta,
+             active) = setup(dev, backend)
+            return (fused, seg_norm, carry, 0, _IR_STEPS, dem, inv, sval,
+                    frac, eta, active), {}
+
+        return make
+
+    return [
+        AuditCase(label="seq-gather", make=mk(_ir_seq, "gather"),
+                  backend="gather"),
+        AuditCase(label="seq-dense", make=mk(_ir_seq, "dense"),
+                  backend="dense", exempt=_IR_DENSE_EXEMPT, budget=False,
+                  kernels=("congestion",)),
+        AuditCase(label="batch-gather", make=mk(_ir_batch, "gather"),
+                  backend="gather"),
+        AuditCase(label="batch-dense", make=mk(_ir_batch, "dense"),
+                  backend="dense", exempt=_IR_DENSE_EXEMPT, budget=False,
+                  kernels=("congestion_batch",)),
+    ]
+
+
+def _ir_cases_mw_final():
+    def mk(setup, backend):
+        def make(dev):
+            fused, _, carry, dem, inv, *_ = setup(dev, backend)
+            return (fused, carry, dem, inv), {}
+
+        return make
+
+    return [
+        AuditCase(label="seq-gather", make=mk(_ir_seq, "gather"),
+                  backend="gather"),
+        AuditCase(label="batch-gather", make=mk(_ir_batch, "gather"),
+                  backend="gather"),
+        AuditCase(label="batch-dense", make=mk(_ir_batch, "dense"),
+                  backend="dense", exempt=_IR_DENSE_EXEMPT, budget=False,
+                  kernels=("congestion_batch",)),
+    ]

@@ -38,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..analysis.registry import AuditCase, solver_entry
 from ..device import resolve
 from .flow import (
     PathSystemBatch,
@@ -76,6 +77,7 @@ def _segment_sum(x: torch.Tensor, owner_cols: list) -> torch.Tensor:
     return _ordered_fan_in_sum(torch.cat([x, pad]), owner_cols)
 
 
+@solver_entry(spec="_ir_cases_pf_solve")
 def _pf_solve(fused, owner, owner_cols, demands, caps, n_comm: int,
               iters: int, r_init=None):
     """Kelly-style dual (link-price) iteration for coupled multipath PF.
@@ -137,6 +139,28 @@ def _pf_solve(fused, owner, owner_cols, demands, caps, n_comm: int,
     return x, r
 
 
+def _pf_operands(ps: PathSystem, backend: str, dev: torch.device) -> tuple:
+    """``_pf_solve``'s operands on ``dev``: ``(fused, owner, owner_cols,
+    demands, caps, n_comm)``."""
+    S, K = ps.n_slots, ps.n_commodities
+    pe_np = np.asarray(ps.path_edges, np.int32)
+    owner_np = np.asarray(ps.path_owner)
+    slot_tab = None
+    if backend == "gather":
+        slot_tab, _ = PathSystemBatch._slot_table(pe_np, S)
+    fused = make_congestion_fn(torch.as_tensor(pe_np, device=dev), S, backend,
+                               slot_tab)
+    owner_tab = PathSystemBatch._owner_table(owner_np, K, ps.n_paths)
+    return (
+        fused,
+        torch.as_tensor(owner_np.astype(np.int64), device=dev),
+        _columns(owner_tab, dev),
+        torch.as_tensor(np.asarray(ps.demands, np.float32), device=dev),
+        torch.as_tensor(np.asarray(ps.capacities, np.float32), device=dev),
+        K,
+    )
+
+
 def mptcp_throughput(
     ps: PathSystem,
     iters: int = 2000,
@@ -163,25 +187,7 @@ def mptcp_throughput(
         if prev is not None and len(prev):
             r_init = torch.as_tensor(_warm_split(ps, np.asarray(prev)),
                                      device=dev)
-    S, K = ps.n_slots, ps.n_commodities
-    pe_np = np.asarray(ps.path_edges, np.int32)
-    owner_np = np.asarray(ps.path_owner)
-    slot_tab = None
-    if backend == "gather":
-        slot_tab, _ = PathSystemBatch._slot_table(pe_np, S)
-    fused = make_congestion_fn(torch.as_tensor(pe_np, device=dev), S, backend,
-                               slot_tab)
-    owner_tab = PathSystemBatch._owner_table(owner_np, K, ps.n_paths)
-    x, r = _pf_solve(
-        fused,
-        torch.as_tensor(owner_np.astype(np.int64), device=dev),
-        _columns(owner_tab, dev),
-        torch.as_tensor(np.asarray(ps.demands, np.float32), device=dev),
-        torch.as_tensor(np.asarray(ps.capacities, np.float32), device=dev),
-        K,
-        iters,
-        r_init,
-    )
+    x, r = _pf_solve(*_pf_operands(ps, backend, dev), iters, r_init)
     x = x.cpu().numpy()
     norm = x / np.maximum(ps.demands, 1e-9)
     # Jain's fairness index over per-commodity normalized throughput
@@ -189,3 +195,23 @@ def mptcp_throughput(
     jain = float((s1 ** 2) / (len(norm) * s2 + 1e-12))
     return MptcpResult(norm, float(norm.mean()), jain, iters,
                        r.cpu().numpy())
+
+
+# ---- IR audit cases (python -m repro_torch.analysis ir) ------------------- #
+
+def _ir_cases_pf_solve():
+    from .flow import _IR_DENSE_EXEMPT, _audit_systems
+
+    def mk(backend):
+        def make(dev):
+            operands = _pf_operands(_audit_systems()[0], backend, dev)
+            return (*operands, 8), {}
+
+        return make
+
+    return [
+        AuditCase(label="gather", make=mk("gather"), backend="gather"),
+        AuditCase(label="dense", make=mk("dense"), backend="dense",
+                  exempt=_IR_DENSE_EXEMPT, budget=False,
+                  kernels=("congestion",)),
+    ]

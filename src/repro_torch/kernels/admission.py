@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..analysis.registry import AuditCase, solver_entry
 from ..device import resolve
 
 __all__ = [
@@ -83,6 +84,7 @@ def admission_ref(dvals, rem, cand, pref) -> torch.Tensor:
     return ok
 
 
+@solver_entry(spec="_ir_cases_admission")
 def admission(dvals, rem, cand, pref) -> torch.Tensor:
     """(M, C) bool mask: the CUDA kernel on CUDA tensors, the plain version
     on CPU tensors."""
@@ -118,7 +120,7 @@ def _admission_cuda(d, r, c, p):
     return out != 0
 
 
-def admission_prune(
+def admission_prune(  # repro-lint: disable=JF100 host loop around admission
     dist_rows: np.ndarray,
     dst_row: np.ndarray,
     cand: np.ndarray,
@@ -146,3 +148,19 @@ def admission_prune(
         torch.from_numpy(np.ascontiguousarray(pref, dtype=np.int32)).to(dev),
     )
     return mask.cpu().numpy()
+
+
+# ---- IR audit cases (python -m repro_torch.analysis ir) ------------------- #
+
+def _ir_cases_admission():
+    def make(dev):
+        rng = np.random.default_rng(0)
+        M, C, W = 32, 6, 3
+        args = (rng.integers(0, 5, (M, C)).astype(np.float32),
+                rng.integers(0, 5, M).astype(np.float32),
+                rng.integers(0, 16, (M, C)).astype(np.int32),
+                rng.integers(-1, 16, (M, W)).astype(np.int32))
+        return tuple(torch.as_tensor(x, device=dev) for x in args), {}
+
+    return [AuditCase(label="mask", make=make, budget=False,
+                      kernels=("admission",))]

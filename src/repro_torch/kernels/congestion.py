@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..analysis.registry import AuditCase, solver_entry
 
 __all__ = [
     "check_congestion_dtype",
@@ -125,6 +126,7 @@ def check_extents(extents, shape) -> tuple[np.ndarray, np.ndarray] | None:
     return out[0], out[1]
 
 
+@solver_entry(spec="_ir_cases_congestion_ref")
 def congestion_ref(incidence, rates, prices,
                    extents=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch ``(B^T r, B w)``, unfused; rank 2 or stacked rank 3.
@@ -155,6 +157,7 @@ def congestion_ref(incidence, rates, prices,
     return loads, costs
 
 
+@solver_entry(spec="_ir_cases_congestion")
 def congestion(incidence, rates, prices,
                extents=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused ``(loads, costs) = (B^T r, B w)``: the CUDA kernel on a CUDA
@@ -241,3 +244,44 @@ def _congestion_cuda(b, r, w, ext):
     if single:
         return loads[0], costs[0]
     return loads, costs
+
+
+# ---- IR audit cases (python -m repro_torch.analysis ir) ------------------- #
+
+_IR_MXU_EXEMPT = {
+    "JF101": "the fused congestion kernel IS the dense-incidence product "
+    "(the plain matrix products on the CPU); its reassociation drift "
+    "against gather is the documented dense-backend contract (CG-3)",
+}
+
+
+def _ir_operands(dev, shape, seed: int = 0) -> tuple:
+    """Seeded {0,1} incidence of ``shape`` (P, S) or (Bt, P, S) with
+    positive rates and prices on ``dev``."""
+    rng = np.random.default_rng(seed)
+    inc = (rng.random(shape) < 0.3).astype(np.float32)
+    rates = rng.uniform(0.5, 1.5, shape[:-1]).astype(np.float32)
+    prices = rng.uniform(0.5, 1.5, shape[:-2] + shape[-1:]).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (inc, rates, prices))
+
+
+def _ir_cases_congestion():
+    def rank2(dev):
+        return _ir_operands(dev, (24, 40)), {}
+
+    def rank3(dev):
+        return _ir_operands(dev, (2, 24, 40)), {
+            "extents": (np.array([24, 17]), np.array([40, 29]))}
+
+    return [
+        AuditCase(label="rank2", make=rank2, exempt=_IR_MXU_EXEMPT,
+                  budget=False, kernels=("congestion",)),
+        AuditCase(label="rank3-extents", make=rank3, exempt=_IR_MXU_EXEMPT,
+                  budget=False, kernels=("congestion_batch",)),
+    ]
+
+
+def _ir_cases_congestion_ref():
+    return [AuditCase(label="rank2",
+                      make=lambda dev: (_ir_operands(dev, (24, 40)), {}),
+                      exempt=_IR_MXU_EXEMPT)]

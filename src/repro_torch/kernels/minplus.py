@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..analysis.registry import AuditCase, solver_entry
 
 __all__ = ["HOPS_INF", "HOPS_MAX_N", "INT16_INF", "check_minplus_dtype",
            "copy_width", "launch_plan", "minplus", "minplus_hops",
@@ -151,6 +152,7 @@ def copy_width(*tensors) -> int:
     return tensors[0].element_size()
 
 
+@solver_entry(spec="_ir_cases_minplus_ref")
 def minplus_ref(a, b) -> torch.Tensor:
     """Plain torch ``C[i, j] = min_k A[i, k] + B[k, j]``.
 
@@ -203,6 +205,7 @@ def minplus_hops_ref(a, b) -> torch.Tensor:
     return acc.masked_fill_(acc >= HOPS_INF, INT16_INF).to(torch.int16)
 
 
+@solver_entry(spec="_ir_cases_minplus")
 def minplus(a, b) -> torch.Tensor:
     """Tropical product: the float32 kernel on CUDA tensors, the plain
     version on CPU tensors."""
@@ -212,6 +215,7 @@ def minplus(a, b) -> torch.Tensor:
     return _launch(a, b, None, hops=False)
 
 
+@solver_entry(spec="_ir_cases_minplus_hops")
 def minplus_hops(a, b, out=None) -> torch.Tensor:
     """Tropical product of canonical int16 hop matrices: the DPX kernel on
     CUDA tensors, the plain version on CPU tensors.  ``out`` (a contiguous
@@ -309,3 +313,36 @@ def pair_rate(form: str, device: "str | torch.device" = "cuda",
     seconds = start.elapsed_time(stop) / 1e3
     instructions = blocks * 256 * iters * 16 * 8
     return instructions * (2 if kind == 0 else 1) / seconds
+
+
+# ---- IR audit cases (python -m repro_torch.analysis ir) ------------------- #
+
+def _ir_hops(dev, n: int = 24, seed: int = 0) -> torch.Tensor:
+    """A seeded int16 hop matrix of ``n`` nodes: small distances, some
+    unreachable (``INT16_INF``), zero diagonal."""
+    g = torch.Generator().manual_seed(seed)
+    d = torch.randint(1, 6, (n, n), generator=g, dtype=torch.int16)
+    d[torch.rand((n, n), generator=g) < 0.2] = INT16_INF
+    d.fill_diagonal_(0)
+    return d.to(dev)
+
+
+def _ir_f32(dev, n: int = 24) -> torch.Tensor:
+    """The same matrix in float32, ``+inf`` where unreachable."""
+    h = _ir_hops(dev, n)
+    return torch.where(h == INT16_INF, float("inf"), h.to(torch.float32))
+
+
+def _ir_cases_minplus():
+    return [AuditCase(label="f32", budget=False, kernels=("minplus",),
+                      make=lambda dev: ((_ir_f32(dev), _ir_f32(dev)), {}))]
+
+
+def _ir_cases_minplus_hops():
+    return [AuditCase(label="int16", budget=False, kernels=("minplus_hops",),
+                      make=lambda dev: ((_ir_hops(dev), _ir_hops(dev)), {}))]
+
+
+def _ir_cases_minplus_ref():
+    return [AuditCase(label="f32",
+                      make=lambda dev: ((_ir_f32(dev), _ir_f32(dev)), {}))]

@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..analysis.registry import AuditCase, solver_entry
 from ..device import is_cuda, resolve
 from .congestion import congestion as _congestion
 from .minplus import HOPS_MAX_N
@@ -96,16 +97,19 @@ def preferred_congestion_backend(
     return "dense" if bytes_needed <= limit else "gather"
 
 
+@solver_entry(spec="_ir_cases_minplus", kind="wrapper")
 def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``C[i, j] = min_k A[i, k] + B[k, j]`` (kernel on CUDA tensors)."""
     return _minplus(a, b)
 
 
+@solver_entry(spec="_ir_cases_matmul", kind="wrapper")
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``A @ B`` (kernel on CUDA tensors)."""
     return _matmul(a, b)
 
 
+@solver_entry(spec="_ir_cases_congestion", kind="wrapper")
 def congestion(incidence, rates, prices, extents=None):
     """Fused ``(B^T r, B w)``; a rank-3 ``incidence`` runs one product per
     stacked batch member, over each member's ``extents=(rows, cols)`` when
@@ -113,6 +117,7 @@ def congestion(incidence, rates, prices, extents=None):
     return _congestion(incidence, rates, prices, extents)
 
 
+@solver_entry(spec="_ir_cases_congestion_loads", kind="wrapper")
 def congestion_loads(incidence, rates, extents=None) -> torch.Tensor:
     """Loads-only ``B^T r`` over a dense (or stacked rank-3) incidence: the
     fused call with zero prices, over each member's ``extents=(rows,
@@ -136,7 +141,7 @@ def _squarings_to_cover(cover: int) -> int:
     return steps
 
 
-def apsp_minplus(
+def apsp_minplus(  # repro-lint: disable=JF100 host fixed-point loop of minplus
     adj,
     diameter_hint: int | None = None,
     certify: bool = True,
@@ -188,7 +193,7 @@ def apsp_form(n: int) -> str:
     return "hops" if n <= HOPS_MAX_N else "f32"
 
 
-def apsp_minplus_blocked(
+def apsp_minplus_blocked(  # repro-lint: disable=JF100 host loop of the products
     adj,
     bm: int = 2048,
     diameter_hint: int | None = None,
@@ -245,7 +250,7 @@ def apsp_minplus_blocked(
     return cur.cpu().numpy()
 
 
-def power_iteration_lambda2(
+def power_iteration_lambda2(  # repro-lint: disable=JF100 host loop of matmul
     adj,
     iters: int = 300,
     block: int = 8,
@@ -297,3 +302,43 @@ def power_iteration_lambda2(
     lam_b = torch.diagonal(q.T @ w)
     lam2 = c - lam_b.max()
     return float(torch.clamp(lam2, min=0.0))
+
+
+# ---- IR audit cases (python -m repro_torch.analysis ir) ------------------- #
+
+_IR_WRAPPER_EXEMPT = {
+    "JF101": "the dense congestion and matmul wrappers contract by design "
+    "(the kernels on CUDA, the plain products on the CPU); bit-exact "
+    "solver paths never route through them",
+}
+
+
+def _ir_cases_congestion():
+    from .congestion import _ir_operands
+
+    return [AuditCase(label="rank2", exempt=_IR_WRAPPER_EXEMPT, budget=False,
+                      kernels=("congestion",),
+                      make=lambda dev: (_ir_operands(dev, (24, 40)), {}))]
+
+
+def _ir_cases_congestion_loads():
+    from .congestion import _ir_operands
+
+    def make(dev):
+        inc, rates, _ = _ir_operands(dev, (2, 24, 40))
+        return (inc, rates), {}
+
+    return [AuditCase(label="rank3", make=make, exempt=_IR_WRAPPER_EXEMPT,
+                      budget=False, kernels=("congestion_batch",))]
+
+
+def _ir_cases_minplus():
+    from .minplus import _ir_cases_minplus as cases
+
+    return cases()
+
+
+def _ir_cases_matmul():
+    from .power import _ir_cases_matmul as cases
+
+    return cases()

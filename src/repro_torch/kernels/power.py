@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..analysis.registry import AuditCase, solver_entry
 
 __all__ = ["NARROW_MAX_N", "check_matmul_dtype", "matmul", "matmul_ref",
            "narrow_plan", "launches"]
@@ -96,12 +97,14 @@ def narrow_plan(a, b, n_sm: int) -> dict:
     return {"band_rows": band_rows, "vec_a": vec_a, "vec_b": vec_b}
 
 
+@solver_entry(spec="_ir_cases_matmul_ref")
 def matmul_ref(a, b) -> torch.Tensor:
     """Plain torch ``A @ B`` in the operands' common type."""
     a, b = check_matmul_dtype(a, b)
     return torch.matmul(a, b)
 
 
+@solver_entry(spec="_ir_cases_matmul")
 def matmul(a, b) -> torch.Tensor:
     """``A @ B``: the CUDA kernel on CUDA tensors, the plain version on CPU
     tensors.  Operands may have any strides (a transposed view, or the
@@ -148,3 +151,30 @@ def _matmul_cuda(a, b):
     with _build.COUNT_LOCK:
         launches += 1
     return out
+
+
+# ---- IR audit cases (python -m repro_torch.analysis ir) ------------------- #
+
+_IR_MATMUL_EXEMPT = {
+    "JF101": "a matmul contracts by definition; no bit-exactness contract "
+    "applies to the spectral-gap path",
+}
+
+
+def _ir_operands(dev, m: int = 40, k: int = 40, n: int = 8) -> tuple:
+    """Seeded float32 ``A`` (m, k) and ``Q`` (k, n): the power iteration's
+    narrow product."""
+    g = torch.Generator().manual_seed(0)
+    return (torch.rand((m, k), generator=g).to(dev),
+            torch.randn((k, n), generator=g).to(dev))
+
+
+def _ir_cases_matmul():
+    return [AuditCase(label="narrow", exempt=_IR_MATMUL_EXEMPT, budget=False,
+                      kernels=("matmul",),
+                      make=lambda dev: (_ir_operands(dev), {}))]
+
+
+def _ir_cases_matmul_ref():
+    return [AuditCase(label="narrow", exempt=_IR_MATMUL_EXEMPT,
+                      make=lambda dev: (_ir_operands(dev), {}))]

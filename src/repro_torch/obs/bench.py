@@ -37,6 +37,7 @@ from . import metrics as _metrics
 
 __all__ = [
     "COMPILE_EVENT",
+    "CompileCounter",
     "Timer",
     "count_compiles",
     "perf_record",
@@ -119,20 +120,26 @@ def timed_peak(fn, device=None):
     return out, dt, peak
 
 
+class CompileCounter:
+    """The ``nvcc`` builds seen while a ``count_compiles`` block was live:
+    ``count``, and ``events`` (the compiled source of each build)."""
+
+    def __init__(self) -> None:
+        self.count = 0
+        self.events: list[str] = []
+
+
 @contextlib.contextmanager
 def count_compiles():
     """Count the kernels' ``nvcc`` builds (``cuda/nvcc_build`` events on the
-    obs bus) made inside the block.  Yields an object whose ``count`` is
-    live."""
-
-    class _C:
-        count = 0
-
-    c = _C()
+    obs bus) made inside the block.  Yields a :class:`CompileCounter` whose
+    ``count`` and ``events`` are live."""
+    c = CompileCounter()
 
     def on_event(name: str, **attrs) -> None:
         if name == COMPILE_EVENT:
             c.count += 1
+            c.events.append(str(attrs.get("source", name)))
 
     _metrics.subscribe(on_event)
     try:

@@ -51,6 +51,7 @@ import torch
 
 from .. import env
 from ..analysis.contracts import check_sim_state, checks_enabled
+from ..analysis.registry import AuditCase, solver_entry
 from ..core.flow import (
     PathSystem,
     PathSystemBatch,
@@ -203,6 +204,7 @@ def _ordered_scatter_add(acc: torch.Tensor, idx: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
+@solver_entry(spec="_ir_cases_waterfill")
 def _waterfill_core(loads_of, hop_cols, nflow, cap, sval, wf_iters: int,
                     slot_cols: list, rule: str = "exact"):
     """Progressive-filling max-min rates for ``nflow`` flows per path row.
@@ -636,6 +638,7 @@ def _init_carry(n_batch: int, n_flows: int, p_max: int, s_max: int,
     }
 
 
+@solver_entry(spec="_ir_cases_run_steps")
 def _run_steps(c: dict, inp: dict, logits_epochs, eos, stream, size_params,
                cfg: SimConfig, policy: str):
     """Advance the carry ``c`` through every step of ``stream`` over the
@@ -863,3 +866,87 @@ def simulate(
     if checks_enabled():
         check_sim_state(result)
     return result
+
+
+# ---- IR audit cases (python -m repro_torch.analysis ir) ------------------- #
+
+_IR_SIM_STEPS, _IR_SIM_ARRIVALS = 4, 6
+
+#: the sim's tallies scatter-add by design (engine.py, ``_run_steps``)
+_IR_SIM_EXEMPT = {
+    "JF102": "the per-commodity volumes accumulate through "
+    "_ordered_scatter_add (one scatter_add round per rank, so each target "
+    "gets at most one non-zero addend a round, no atomic race), and the "
+    "flow counts and FCT histogram scatter-add 1.0s, exact in any order "
+    "below 2^24 (the nflow and fct_hist lines of _run_steps); the "
+    "congestion backend's loads go through make_loads_fn_batch(gather) "
+    "with no scatter in them",
+    "JF104": "two host reads of the largest rank a step, int(rank.max()) "
+    "in _ordered_scatter_add, called for comm_off and comm_del; queued in "
+    "ROADMAP.md for a perf PR after a sim cell",
+}
+
+
+def _ir_batch() -> PathSystemBatch:
+    from ..core.flow import _audit_systems
+
+    return PathSystemBatch.from_systems(list(_audit_systems()))
+
+
+def _ir_cases_waterfill():
+    from ..core.flow import _IR_DENSE_EXEMPT
+
+    def mk(backend):
+        def make(dev):
+            batch = _ir_batch()
+            tabs = _Tables(batch, backend, dev)
+            rng = np.random.default_rng(3)
+            nflow = np.zeros((batch.n_batch, batch.p_max), np.float32)
+            for i, ps in enumerate(batch.systems):
+                nflow[i, : ps.n_paths] = rng.integers(0, 4, ps.n_paths)
+            return (tabs.loads_of, tabs.hop_cols,
+                    torch.as_tensor(nflow, device=dev), tabs.cap, tabs.sval,
+                    4, tabs.slot_cols), {"rule": "exact"}
+
+        return make
+
+    return [
+        AuditCase(label="gather", make=mk("gather"), backend="gather"),
+        AuditCase(label="dense", make=mk("dense"), backend="dense",
+                  exempt=_IR_DENSE_EXEMPT, budget=False,
+                  kernels=("congestion_batch",)),
+    ]
+
+
+def _ir_cases_run_steps():
+    from ..core.flow import _IR_DENSE_EXEMPT
+    from .workloads import steady_poisson
+
+    def mk(backend):
+        def make(dev):
+            batch = _ir_batch()
+            T, A = _IR_SIM_STEPS, _IR_SIM_ARRIVALS
+            cfg = SimConfig(max_flows=16, max_arrivals=A, wf_iters=4,
+                            wf_rule="exact", nbins=4)
+            inp = _batch_inputs(batch, "ecmp", cfg, backend, dev)
+            B, K = batch.n_batch, inp["n_comm"]
+            workload = steady_poisson(T, rate=4.0, size=3.0)
+            logits, eos = _epoch_logits(workload, batch, K, T)
+            rng = np.random.default_rng(5)
+            stream = _check_arrivals(
+                (rng.poisson(4.0, (T, B)), rng.integers(0, K, (T, B, A)),
+                 np.zeros((T, B, A), bool)), T, B, A, K, dev)
+            carry = _init_carry(B, cfg.max_flows, batch.p_max, batch.s_max,
+                                K, cfg.nbins, dev)
+            return (carry, inp, torch.as_tensor(logits, device=dev), eos,
+                    stream, _size_params(workload), cfg, "ecmp"), {}
+
+        return make
+
+    return [
+        AuditCase(label="ecmp-gather", make=mk("gather"), backend="gather",
+                  exempt=_IR_SIM_EXEMPT),
+        AuditCase(label="ecmp-dense", make=mk("dense"), backend="dense",
+                  exempt={**_IR_DENSE_EXEMPT, **_IR_SIM_EXEMPT},
+                  budget=False, kernels=("congestion_batch",)),
+    ]

@@ -651,3 +651,31 @@ def test_one_rank_card_mesh_step_equals_unsharded(dev):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def test_ir_audit_on_card_is_clean_and_reaches_every_kernel(dev):
+    """The dispatch-level audit on the card: no finding beyond the recorded
+    exemptions, and every kernel and dense solver case moved the launch
+    counters it names (the kernels launch through ctypes, unseen by the
+    dispatcher); a second MW batch in one shape bucket builds nothing."""
+    from repro_torch.analysis import irlint, retrace
+    from repro_torch.analysis.registry import registered_entries
+
+    _build.build_all()
+    findings, rows = irlint.audit_entries(registered_entries(), dev)
+    assert findings == [], "\n".join(map(str, findings))
+    assert rows
+    for row in rows:
+        for name in row["kernels"]:
+            assert row["launches"].get(name, 0) > 0, row
+    systems = []
+    for s in range(4):
+        top = jellyfish(22 + 2 * (s % 2), 8, 4, seed=s)
+        comm = random_permutation_traffic(top, seed=s + 5)
+        systems.append(build_path_system(top, comm, k=4, device=dev))
+    mw_concurrent_flow_batch(systems[:2], iters=24, device=dev)
+    before = retrace.solver_cache_sizes()
+    with retrace.track_compiles() as c:
+        mw_concurrent_flow_batch(systems[2:], iters=24, device=dev)
+    assert c.count == 0, c.events
+    assert retrace.solver_cache_sizes() == before

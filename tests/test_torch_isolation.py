@@ -1,10 +1,11 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``.
 
-A fresh interpreter imports the package and every submodule and then finds
-no ``jax`` and no ``repro`` module loaded; an AST scan of the sources (and
-of ``chip_smoke.py``) finds no ``import jax``, ``import repro`` or ``from
-repro`` (relative imports stay inside the package).  The entry points run
-on the card unless the caller asks for the CPU.
+A fresh interpreter imports the package and every submodule (and the
+port's examples, ``examples/*_torch.py``) and then finds no ``jax`` and no
+``repro`` module loaded; an AST scan of the sources (and of
+``chip_smoke.py`` and the examples) finds no ``import jax``, ``import
+repro`` or ``from repro`` (relative imports stay inside the package).  The
+entry points run on the card unless the caller asks for the CPU.
 """
 
 import ast
@@ -19,6 +20,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _modules() -> list[str]:
@@ -37,6 +39,10 @@ def test_import_loads_no_jax_and_no_reference():
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
+        "import importlib.util\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
@@ -63,12 +69,36 @@ def _absolute_imports(path: pathlib.Path):
 def test_sources_never_import_jax_or_reference():
     offenders = [
         f"{path.relative_to(ROOT)}:{line} imports {name}"
-        for path in [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"]
+        for path in [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py",
+                     *EXAMPLES]
         for line, name in _absolute_imports(path)
         if name.split(".")[0] in ("jax", "jaxlib", "repro")
     ]
     assert offenders == []
     assert len(_modules()) >= 20
+
+
+def test_examples_are_covered_and_default_to_the_card():
+    assert [p.name for p in EXAMPLES] == [
+        "expand_cluster_torch.py", "quickstart_torch.py",
+        "serve_lm_torch.py", "train_lm_torch.py"]
+    for path in EXAMPLES:
+        defaults = [
+            kw.value.value
+            for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.Call) and node.args
+            and isinstance(node.args[0], ast.Constant)
+            and node.args[0].value == "--device"
+            for kw in node.keywords if kw.arg == "default"
+        ]
+        assert defaults == ["cuda"], path.name
+
+
+def test_analysis_modules_are_covered():
+    mods = set(_modules())
+    for m in ("repro_torch.analysis.registry", "repro_torch.analysis.irlint",
+              "repro_torch.analysis.retrace"):
+        assert m in mods
 
 
 def test_event_and_family_modules_are_covered():
