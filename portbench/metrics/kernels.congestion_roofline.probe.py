@@ -1,0 +1,7 @@
+"""The congestion kernels' share of their roofline in the probe cells, in percent."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.congestion_roofline(run)
