@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import env
+from . import env, obs
 from .core import (
     build_path_system,
     build_path_system_batch,
@@ -163,10 +163,12 @@ class Probe(NamedTuple):
     mw_results: list
 
 
+@obs.spanned("capacity/probe")
 def probe_full_capacity(top, n_matrices=3, k=8, tol=1e-6, method="auto",
                         iters=500, mw_backend="auto",
                         device: "str | torch.device" = "cuda") -> Probe:
     """``supports_full_capacity`` with the solves it ran."""
+    obs.annotate(servers=top.n_servers, matrices=n_matrices)
     lp_ok, mw_systems = _probe_verdict(
         _probe_systems(top, n_matrices, k, device), tol, method
     )

@@ -138,7 +138,6 @@ def stream_builds(
         obs.counter("pipeline/builds").inc()
         obs.counter("pipeline/stall_s").inc(stall_s)
         obs.counter("pipeline/overlap_s").inc(max(build_s - stall_s, 0.0))
-        obs.hist("pipeline/stall_s_hist").observe(stall_s)
         return out
 
     it = iter(thunks)

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import obs
 from .topology import Topology, edge_delta, edge_fingerprint
 
 __all__ = ["add_switch", "remove_switch", "rewire_free_ports", "expand_to"]
@@ -256,6 +257,7 @@ def _modal_spec(top: Topology) -> tuple[int, int]:
     return int(k), int(r)
 
 
+@obs.spanned("expansion/expand_to")
 def expand_to(
     top: Topology,
     n_switches: int,
@@ -271,6 +273,7 @@ def expand_to(
     switch happens to be stored last.  The final topology's delta meta is
     relative to the input ``top`` (ids are append-stable across the chain).
     """
+    obs.annotate(n_from=top.n_switches, n_to=n_switches)
     rng = seed if isinstance(seed, np.random.Generator) else np.random.default_rng(seed)
     if k_ports is None or r_net is None:
         mk, mr = _modal_spec(top)

@@ -230,6 +230,10 @@ def _fill_incidence(out: torch.Tensor, path_edges: torch.Tensor,
 # congestion closures
 # --------------------------------------------------------------------------- #
 
+#: The span around every closure the three factories below return: the
+#: program's own label of a congestion product, whatever its backend.
+_CONGESTION = "kernels/congestion"
+
 
 def make_congestion_fn(  # repro-lint: disable=JF100 builds fused, run by entries
     path_edges: torch.Tensor,
@@ -262,7 +266,7 @@ def make_congestion_fn(  # repro-lint: disable=JF100 builds fused, run by entrie
             costs = _path_cost_gather(torch.cat([prices, pad]), hop_cols)
             return loads, costs
 
-        return fused
+        return obs.spanned(_CONGESTION)(fused)
     if backend != "dense":
         raise ValueError(f"unknown congestion backend: {backend!r}")
     b = dense_incidence(path_edges, n_slots)
@@ -270,7 +274,7 @@ def make_congestion_fn(  # repro-lint: disable=JF100 builds fused, run by entrie
     def fused(rates, prices):
         return ops.congestion(b, rates, prices)
 
-    return fused
+    return obs.spanned(_CONGESTION)(fused)
 
 
 def make_congestion_fn_batch(  # repro-lint: disable=JF100 builds fused, run by entries
@@ -321,7 +325,7 @@ def make_congestion_fn_batch(  # repro-lint: disable=JF100 builds fused, run by 
                                       hop_cols)
             return loads, costs
 
-        return fused
+        return obs.spanned(_CONGESTION)(fused)
     if backend != "dense":
         raise ValueError(f"unknown congestion backend: {backend!r}")
     if shared:
@@ -330,13 +334,13 @@ def make_congestion_fn_batch(  # repro-lint: disable=JF100 builds fused, run by 
         def fused(rates, prices):
             return rates @ b, prices @ b.T
 
-        return fused
+        return obs.spanned(_CONGESTION)(fused)
     b3 = _stacked_incidence(path_edges, n_slots)
 
     def fused(rates, prices):
         return ops.congestion(b3, rates, prices, extents)
 
-    return fused
+    return obs.spanned(_CONGESTION)(fused)
 
 
 def make_loads_fn_batch(  # repro-lint: disable=JF100 builds loads_of, run by entries
@@ -380,7 +384,7 @@ def make_loads_fn_batch(  # repro-lint: disable=JF100 builds loads_of, run by en
                 loads = torch.zeros((n_batch, n_slots), dtype=_F32, device=dev)
             return loads
 
-        return loads_fn
+        return obs.spanned(_CONGESTION)(loads_fn)
     if backend != "dense":
         raise ValueError(f"unknown congestion backend: {backend!r}")
     if shared:
@@ -389,13 +393,13 @@ def make_loads_fn_batch(  # repro-lint: disable=JF100 builds loads_of, run by en
         def loads_fn(rates):
             return rates @ b
 
-        return loads_fn
+        return obs.spanned(_CONGESTION)(loads_fn)
     b3 = _stacked_incidence(path_edges, n_slots)
 
     def loads_fn(rates):
         return ops.congestion_loads(b3, rates, extents)
 
-    return loads_fn
+    return obs.spanned(_CONGESTION)(loads_fn)
 
 
 def _resolve_backend(
@@ -403,9 +407,11 @@ def _resolve_backend(
     n_batch: int = 1,
 ) -> str:
     if backend == "auto":
-        return ops.preferred_congestion_backend(
+        backend = ops.preferred_congestion_backend(
             n_paths, n_slots, n_batch=n_batch, device=device
         )
+        obs.counter(f"flow/backend/{backend}").inc()
+        return backend
     if backend not in ("gather", "dense"):
         raise ValueError(
             f"unknown congestion backend {backend!r}: expected auto, gather "
@@ -573,6 +579,7 @@ def _seq_setup(ps: PathSystem, backend: str, x_init: np.ndarray,
     return fused, seg_norm, carry, demands[owner], inv_cap
 
 
+@obs.spanned("mw/solve")
 def mw_concurrent_flow(
     ps: PathSystem,
     iters: int = 400,
@@ -606,7 +613,9 @@ def mw_concurrent_flow(
     if ps.n_paths == 0:
         return FlowResult(0.0, np.zeros(0), np.inf, "mw", 0)
     backend = _resolve_backend(backend, ps.n_paths, ps.n_slots, dev)
-    if warm is not None and ps.row_map is not None:
+    warm_start = warm is not None and ps.row_map is not None
+    obs.annotate(paths=ps.n_paths, backend=backend, warm=warm_start)
+    if warm_start:
         x_init = _warm_split(ps, warm)
     else:
         x_init = np.ones(ps.n_paths, dtype=np.float32)
@@ -642,6 +651,7 @@ def mw_concurrent_flow(
         float(alpha), rates.cpu().numpy(), float(max_load), f"mw-{backend}",
         done,
     )
+    obs.annotate(iters=done)
     obs.counter("mw/solves").inc()
     obs.counter("mw/iters").inc(done)
     obs.gauge("mw/alpha").set(res.alpha)
@@ -929,6 +939,7 @@ def _batch_setup(batch: PathSystemBatch, backend: str, x_init: np.ndarray,
     return fused, seg_norm, carry, dem, inv_cap, slot_valid
 
 
+@obs.spanned("mw/solve_batch")
 def mw_concurrent_flow_batch(
     systems: "PathSystemBatch | Sequence[PathSystem]",
     iters: int = 400,
@@ -978,6 +989,8 @@ def mw_concurrent_flow_batch(
     backend = _resolve_backend(backend, batch.p_max, batch.s_max, dev,
                                n_batch=max(B, 2))
     method_tag = f"mw-batch-{backend}"
+    members = int((~empty).sum())  # repro-lint: disable=JF005 bool count
+    obs.annotate(members=members, backend=backend, warm=warm is not None)
     x_init = np.ones((B, batch.p_max), dtype=np.float32)
     if warm is not None:
         for i, (ps, w) in enumerate(zip(batch.systems, warm)):
@@ -1027,6 +1040,10 @@ def mw_concurrent_flow_batch(
     alpha = alpha.cpu().numpy()
     rates = rates.cpu().numpy()
     max_load = max_load.cpu().numpy()
+    member_iters = int(done.sum())  # repro-lint: disable=JF005 int count
+    obs.annotate(iters=int(done.max()), member_iters=member_iters)
+    obs.counter("mw/solves").inc(members)
+    obs.counter("mw/iters").inc(member_iters)
     out = []
     for b in range(B):
         if empty[b]:

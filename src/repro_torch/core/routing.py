@@ -1191,6 +1191,7 @@ def _group_slack_init(
     return slack
 
 
+@obs.spanned("build/batch")
 def build_path_system_batch(
     tops: "list[Topology]",
     comms: "list[Commodities]",
@@ -1252,9 +1253,10 @@ def build_path_system_batch(
         raise ValueError("build_path_system_batch needs at least one instance")
 
     B = len(tops)
+    obs.annotate(instances=B)
     entries = [_topo_entry(t, cache=cache) for t in tops]
 
-    # ---- group instances by edge-set fingerprint ------------------------- #
+    # ---- group instances by edge-set fingerprint --------------------- #
     gid_of: dict[tuple, int] = {}
     group_rep: list[int] = []  # representative instance index per group
     inst_group = np.empty(B, dtype=np.int64)
@@ -1271,7 +1273,7 @@ def build_path_system_batch(
     for i in range(B):
         members[int(inst_group[i])].append(i)
 
-    # ---- per-instance canonical pair keys, per-group unique pair sets ---- #
+    # ---- per-instance canonical pair keys, per-group unique pairs ---- #
     inst_keys: list[np.ndarray] = []
     for i in range(B):
         n_g = tops[i].n_switches
@@ -1283,84 +1285,96 @@ def build_path_system_batch(
         for g in range(G)
     ]
 
-    # ---- block-diagonal composition -------------------------------------- #
+    obs.annotate(groups=G, pairs=sum(len(gk) for gk in group_keys))
+
+    # ---- block-diagonal composition ---------------------------------- #
     sizes = np.array([tops[group_rep[g]].n_switches for g in range(G)],
                      dtype=np.int64)
     bases = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-    group_dist = []
-    group_nbr = []
-    for g in range(G):
-        rep = group_rep[g]
-        group_dist.append(_cached_dist(tops[rep], entries[rep], dev))
-        group_nbr.append(_cached_nbr(tops[rep], entries[rep]))
+    with obs.span("build/apsp", groups=G):
+        group_dist = []
+        group_nbr = []
+        for g in range(G):
+            rep = group_rep[g]
+            group_dist.append(_cached_dist(tops[rep], entries[rep], dev))
+            group_nbr.append(_cached_nbr(tops[rep], entries[rep]))
 
-    offs = np.concatenate(
-        [[0], np.cumsum([len(gk) for gk in group_keys])]
-    ).astype(np.int64)
-    src_all = np.empty(int(offs[-1]), dtype=np.int64)
-    dst_all = np.empty(int(offs[-1]), dtype=np.int64)
-    slack_all = np.empty(int(offs[-1]), dtype=np.int64)
-    for g in range(G):
-        gk = group_keys[g]
-        n_g = int(sizes[g])
-        b = int(bases[g])
-        rep = group_rep[g]
-        s_u, d_u = gk // n_g, gk % n_g
-        sl = slice(int(offs[g]), int(offs[g + 1]))
-        src_all[sl] = s_u + b
-        dst_all[sl] = d_u + b
-        slack_all[sl] = _group_slack_init(
-            tops[rep], entries[rep], group_dist[g], s_u, d_u, k, max_slack
+    with obs.span("build/slack", groups=G):
+        offs = np.concatenate(
+            [[0], np.cumsum([len(gk) for gk in group_keys])]
+        ).astype(np.int64)
+        src_all = np.empty(int(offs[-1]), dtype=np.int64)
+        dst_all = np.empty(int(offs[-1]), dtype=np.int64)
+        slack_all = np.empty(int(offs[-1]), dtype=np.int64)
+        for g in range(G):
+            gk = group_keys[g]
+            n_g = int(sizes[g])
+            b = int(bases[g])
+            rep = group_rep[g]
+            s_u, d_u = gk // n_g, gk % n_g
+            sl = slice(int(offs[g]), int(offs[g + 1]))
+            src_all[sl] = s_u + b
+            dst_all[sl] = d_u + b
+            slack_all[sl] = _group_slack_init(
+                tops[rep], entries[rep], group_dist[g], s_u, d_u, k,
+                max_slack,
+            )
+
+    # ---- ONE combined enumeration over every group's pairs ----------- #
+    with obs.span("build/enumerate", pairs=len(src_all)):
+        uniq = _k_shortest_unique(
+            None, _BlockDist(group_dist, group_nbr, bases), src_all,
+            dst_all, k, max_slack, max_enum, slack_init=slack_all,
+            device=dev,
         )
 
-    # ---- ONE combined enumeration over every group's pairs --------------- #
-    uniq = _k_shortest_unique(
-        None, _BlockDist(group_dist, group_nbr, bases), src_all, dst_all,
-        k, max_slack, max_enum, slack_init=slack_all, device=dev,
-    )
-
-    # ---- distribute per instance, stream slot assembly ------------------- #
-    systems = []
-    for i in range(B):
-        g = int(inst_group[i])
-        inv = np.searchsorted(group_keys[g], inst_keys[i]) + int(offs[g])
-        s_i = np.asarray(comms[i].src, dtype=np.int64)
-        d_i = np.asarray(comms[i].dst, dtype=np.int64)
-        # enumeration already collected LOCAL ids (block-compact shards),
-        # so distribution is copy + src>dst reversal, like the sequential
-        # build — no per-element offset arithmetic here
-        rev = (s_i > d_i).tolist()
-        all_paths: list[list[list[int]]] = []
-        for j, q in enumerate(inv.tolist()):
-            found = uniq[q]
-            if rev[j]:
-                paths = [p[::-1] for p in found]
-            else:
-                # copy so duplicate pairs never alias
-                paths = [list(p) for p in found]
-            all_paths.append(paths)
-        unrouted = np.array([len(p) == 0 for p in all_paths], dtype=bool)
-        E = tops[i].n_edges
-        pe, path_len, owner, kept = _paths_to_slots(tops[i], entries[i],
-                                                    all_paths)
-        systems.append(PathSystem(
-            n_edges=E,
-            path_edges=pe,
-            path_len=path_len,
-            path_owner=owner,
-            demands=comms[i].demand[~unrouted].astype(np.float32),
-            capacities=np.ones(2 * E, dtype=np.float32),
-            n_commodities=int(kept),
-            node_paths=all_paths if keep_node_paths else None,
-            unrouted=unrouted,
-            src=s_i.copy(),
-            dst=d_i.copy(),
-            k=k,
-            max_slack=max_slack,
-        ))
-    batch = PathSystemBatch.from_systems(systems, bucket=bucket)
-    if checks_enabled():
-        check_built_batch(batch, tops, name="build_path_system_batch")
+    # ---- distribute per instance, stream slot assembly --------------- #
+    with obs.span("build/slots", instances=B):
+        systems = []
+        for i in range(B):
+            g = int(inst_group[i])
+            inv = (np.searchsorted(group_keys[g], inst_keys[i])
+                   + int(offs[g]))
+            s_i = np.asarray(comms[i].src, dtype=np.int64)
+            d_i = np.asarray(comms[i].dst, dtype=np.int64)
+            # enumeration already collected LOCAL ids (block-compact
+            # shards), so distribution is copy + src>dst reversal, like
+            # the sequential build — no per-element offset arithmetic
+            rev = (s_i > d_i).tolist()
+            all_paths: list[list[list[int]]] = []
+            for j, q in enumerate(inv.tolist()):
+                found = uniq[q]
+                if rev[j]:
+                    paths = [p[::-1] for p in found]
+                else:
+                    # copy so duplicate pairs never alias
+                    paths = [list(p) for p in found]
+                all_paths.append(paths)
+            unrouted = np.array([len(p) == 0 for p in all_paths],
+                                dtype=bool)
+            E = tops[i].n_edges
+            pe, path_len, owner, kept = _paths_to_slots(
+                tops[i], entries[i], all_paths)
+            systems.append(PathSystem(
+                n_edges=E,
+                path_edges=pe,
+                path_len=path_len,
+                path_owner=owner,
+                demands=comms[i].demand[~unrouted].astype(np.float32),
+                capacities=np.ones(2 * E, dtype=np.float32),
+                n_commodities=int(kept),
+                node_paths=all_paths if keep_node_paths else None,
+                unrouted=unrouted,
+                src=s_i.copy(),
+                dst=d_i.copy(),
+                k=k,
+                max_slack=max_slack,
+            ))
+    with obs.span("build/stack", instances=B):
+        batch = PathSystemBatch.from_systems(systems, bucket=bucket)
+        if checks_enabled():
+            check_built_batch(batch, tops,
+                              name="build_path_system_batch")
     return batch
 
 
@@ -1553,6 +1567,7 @@ def _resolve_node_map(
     return None
 
 
+@obs.spanned("route/update")
 def update_path_system(
     ps: PathSystem,
     top_old: Topology,
@@ -1604,6 +1619,7 @@ def update_path_system(
     reference's semantics for a delta it cannot splice, not a device
     fallback: it runs on the same ``device``.
     """
+    obs.annotate(commodities=len(comm.src))
     dev = resolve(device)
     kk = ps.k if k is None else k
     ms = ps.max_slack if max_slack is None else max_slack
@@ -1631,143 +1647,145 @@ def update_path_system(
         return rebuild()
 
     # ---- APSP: reuse / repair ------------------------------------------- #
-    if dist_old is None:
-        old_entry = _topo_cache.get(_topo_key(top_old)) if cache else None
-        dist_old = old_entry.get("dist") if old_entry else None
-    if dist_old is None:
-        # No cached predecessor APSP: recompute it (still far cheaper than a
-        # full rebuild, which would also redo walk counts and enumeration).
-        dist_old = _apsp(top_old.adjacency(), diameter_hint=_diameter_hint(top_old),
-                         device=dev)
-    else:
-        dist_old = np.asarray(dist_old)  # canonical int16 or caller float
+    with obs.span("route/update/repair"):
+        if dist_old is None:
+            old_entry = _topo_cache.get(_topo_key(top_old)) if cache else None
+            dist_old = old_entry.get("dist") if old_entry else None
+        if dist_old is None:
+            # No cached predecessor APSP: recompute it (still far cheaper than a
+            # full rebuild, which would also redo walk counts and enumeration).
+            dist_old = _apsp(top_old.adjacency(), diameter_hint=_diameter_hint(top_old),
+                             device=dev)
+        else:
+            dist_old = np.asarray(dist_old)  # canonical int16 or caller float
 
-    entry_new = _topo_entry(top_new, cache=cache)
-    nbr_new = _cached_nbr(top_new, entry_new)
-    if "dist" in entry_new:
-        dist_new = entry_new["dist"]
-    elif n_new < 384:
-        # below a few hundred switches the dense BLAS APSP is cheaper than
-        # candidate construction + certification — just recompute
-        dist_new = _apsp(
-            _cached_adj(top_new, entry_new), diameter_hint=_diameter_hint(top_new),
-            device=dev,
-        )
-        entry_new["dist"] = dist_new
-    else:
-        kept_old = np.flatnonzero(nm >= 0)
-        kept_new = nm[kept_old]
-        # rows that are certainly stale: new switches, plus endpoints of
-        # removed edges (their direct entry changed for sure); everything
-        # else is assumed unchanged and certified below
-        new_nodes = np.setdiff1d(np.arange(n_new, dtype=np.int64), kept_new)
-        removed_ends = nm[np.unique(top_old.edges[removed_mask])]
-        rows = np.union1d(removed_ends[removed_ends >= 0], new_nodes)
-        cand = _repair_dist(
-            dist_old, top_new, kept_old, kept_new, rows, added,
-            adj=_slack_adj(top_new, entry_new),
-        )
-        if _dist_is_exact(cand, nbr_new):
-            dist_new = cand
-        else:  # a removal shifted distances between surviving rows
+        entry_new = _topo_entry(top_new, cache=cache)
+        nbr_new = _cached_nbr(top_new, entry_new)
+        if "dist" in entry_new:
+            dist_new = entry_new["dist"]
+        elif n_new < 384:
+            # below a few hundred switches the dense BLAS APSP is cheaper than
+            # candidate construction + certification — just recompute
             dist_new = _apsp(
-                _cached_adj(top_new, entry_new),
-                diameter_hint=_diameter_hint(top_new), device=dev,
+                _cached_adj(top_new, entry_new), diameter_hint=_diameter_hint(top_new),
+                device=dev,
             )
-        entry_new["dist"] = dist_new
+            entry_new["dist"] = dist_new
+        else:
+            kept_old = np.flatnonzero(nm >= 0)
+            kept_new = nm[kept_old]
+            # rows that are certainly stale: new switches, plus endpoints of
+            # removed edges (their direct entry changed for sure); everything
+            # else is assumed unchanged and certified below
+            new_nodes = np.setdiff1d(np.arange(n_new, dtype=np.int64), kept_new)
+            removed_ends = nm[np.unique(top_old.edges[removed_mask])]
+            rows = np.union1d(removed_ends[removed_ends >= 0], new_nodes)
+            cand = _repair_dist(
+                dist_old, top_new, kept_old, kept_new, rows, added,
+                adj=_slack_adj(top_new, entry_new),
+            )
+            if _dist_is_exact(cand, nbr_new):
+                dist_new = cand
+            else:  # a removal shifted distances between surviving rows
+                dist_new = _apsp(
+                    _cached_adj(top_new, entry_new),
+                    diameter_hint=_diameter_hint(top_new), device=dev,
+                )
+            entry_new["dist"] = dist_new
 
     # ---- per-commodity reuse decision (vectorized) ----------------------- #
-    src_n = np.asarray(comm.src, dtype=np.int64)
-    dst_n = np.asarray(comm.dst, dtype=np.int64)
-    K = len(src_n)
+    with obs.span("route/update/classify"):
+        src_n = np.asarray(comm.src, dtype=np.int64)
+        dst_n = np.asarray(comm.dst, dtype=np.int64)
+        K = len(src_n)
 
-    # join new commodities against old ones on the (mapped) ordered pair key
-    s_m, t_m = nm[ps.src], nm[ps.dst]
-    alive_idx = np.flatnonzero((s_m >= 0) & (t_m >= 0))
-    key_old = s_m[alive_idx] * n_new + t_m[alive_idx]
-    order_o = np.argsort(key_old, kind="stable")  # dup pairs: first one wins
-    sorted_keys = key_old[order_o]
-    key_new = src_n * n_new + dst_n
-    pos = np.searchsorted(sorted_keys, key_new)
-    pos_ok = pos < len(sorted_keys)
-    matched = pos_ok.copy()
-    if len(sorted_keys):
-        matched[pos_ok] = sorted_keys[pos[pos_ok]] == key_new[pos_ok]
-    else:
-        matched[:] = False
-    old_of = np.full(K, -1, dtype=np.int64)
-    old_of[matched] = alive_idx[order_o[pos[matched]]]
+        # join new commodities against old ones on the (mapped) ordered pair key
+        s_m, t_m = nm[ps.src], nm[ps.dst]
+        alive_idx = np.flatnonzero((s_m >= 0) & (t_m >= 0))
+        key_old = s_m[alive_idx] * n_new + t_m[alive_idx]
+        order_o = np.argsort(key_old, kind="stable")  # dup pairs: first one wins
+        sorted_keys = key_old[order_o]
+        key_new = src_n * n_new + dst_n
+        pos = np.searchsorted(sorted_keys, key_new)
+        pos_ok = pos < len(sorted_keys)
+        matched = pos_ok.copy()
+        if len(sorted_keys):
+            matched[pos_ok] = sorted_keys[pos[pos_ok]] == key_new[pos_ok]
+        else:
+            matched[:] = False
+        old_of = np.full(K, -1, dtype=np.int64)
+        old_of[matched] = alive_idx[order_o[pos[matched]]]
 
-    n_kept_old = int((~ps.unrouted).sum())
-    old_kept_of = np.cumsum(~ps.unrouted) - 1  # valid where routed
-    owner_sorted = np.argsort(ps.path_owner, kind="stable")
-    owner_bounds = np.searchsorted(
-        ps.path_owner[owner_sorted], np.arange(n_kept_old + 1)
-    )
-
-    # rows whose slots touch a removed edge; per-commodity stats via reduceat
-    # over owner-grouped rows (every kept commodity owns >= 1 row)
-    slots = ps.path_edges
-    valid = slots < 2 * E_old
-    eid = np.where(valid, slots % max(E_old, 1), 0)
-    row_broken = (removed_mask[eid] & valid).any(axis=1) if E_old else (
-        np.zeros(len(slots), dtype=bool)
-    )
-    cnt = np.diff(owner_bounds)
-    if n_kept_old:
-        starts = owner_bounds[:-1]
-        maxlen = np.maximum.reduceat(
-            ps.path_len[owner_sorted].astype(np.int64), starts
+        n_kept_old = int((~ps.unrouted).sum())
+        old_kept_of = np.cumsum(~ps.unrouted) - 1  # valid where routed
+        owner_sorted = np.argsort(ps.path_owner, kind="stable")
+        owner_bounds = np.searchsorted(
+            ps.path_owner[owner_sorted], np.arange(n_kept_old + 1)
         )
-        broken_kept = np.maximum.reduceat(
-            row_broken[owner_sorted].astype(np.uint8), starts
-        ).astype(bool)
-    else:
-        maxlen = np.zeros(0, dtype=np.int64)
-        broken_kept = np.zeros(0, dtype=bool)
 
-    # Added-edge perturbation test, per new commodity.  An added edge can
-    # only enter a pair's k-shortest set with a path no longer than the
-    # pair's kept budget: strictly shorter always displaces, and a
-    # tie-length candidate can reshuffle the canonical tie selection — so
-    # any admissible added-edge path at or under the budget forces a
-    # re-enumeration.
-    d_pair_new = hops_to_f32(dist_new[src_n, dst_n])
-    if len(added):
-        au, av = added[:, 0], added[:, 1]
-        # np.ix_ gathers keep the temporaries at (K, |added|) instead of the
-        # (K, N) row gather the chained indexing used to materialize
-        via_added = np.minimum(
-            hops_to_f32(dist_new[np.ix_(src_n, au)])
-            + hops_to_f32(dist_new[np.ix_(dst_n, av)]),
-            hops_to_f32(dist_new[np.ix_(src_n, av)])
-            + hops_to_f32(dist_new[np.ix_(dst_n, au)]),
-        ).min(axis=1) + 1.0  # shortest path length through any added edge
-    else:
-        via_added = np.full(K, np.inf, dtype=np.float32)
+        # rows whose slots touch a removed edge; per-commodity stats via reduceat
+        # over owner-grouped rows (every kept commodity owns >= 1 row)
+        slots = ps.path_edges
+        valid = slots < 2 * E_old
+        eid = np.where(valid, slots % max(E_old, 1), 0)
+        row_broken = (removed_mask[eid] & valid).any(axis=1) if E_old else (
+            np.zeros(len(slots), dtype=bool)
+        )
+        cnt = np.diff(owner_bounds)
+        if n_kept_old:
+            starts = owner_bounds[:-1]
+            maxlen = np.maximum.reduceat(
+                ps.path_len[owner_sorted].astype(np.int64), starts
+            )
+            broken_kept = np.maximum.reduceat(
+                row_broken[owner_sorted].astype(np.uint8), starts
+            ).astype(bool)
+        else:
+            maxlen = np.zeros(0, dtype=np.int64)
+            broken_kept = np.zeros(0, dtype=bool)
 
-    reuse = np.zeros(K, dtype=bool)
-    mi = old_of[matched]  # old commodity index per matched new commodity
-    m_js = np.flatnonzero(matched)
-    unr_old = ps.unrouted[mi]
-    # previously-unrouted pairs stay reusable iff still disconnected
-    still_cut = ~np.isfinite(d_pair_new[m_js])
-    reuse[m_js[unr_old]] = still_cut[unr_old]
-    # routed pairs: intact rows, unchanged distance, no added-edge shortcut
-    r_js = m_js[~unr_old]
-    r_mi = mi[~unr_old]
-    ci = old_kept_of[r_mi]
-    ok = ~broken_kept[ci]
-    ok &= hops_to_f32(dist_old[ps.src[r_mi], ps.dst[r_mi]]) == d_pair_new[r_js]
-    budget = np.where(
-        cnt[ci] >= kk, maxlen[ci].astype(np.float64), d_pair_new[r_js] + ms
-    )
-    ok &= via_added[r_js] > budget
-    reuse[r_js] = ok
+        # Added-edge perturbation test, per new commodity.  An added edge can
+        # only enter a pair's k-shortest set with a path no longer than the
+        # pair's kept budget: strictly shorter always displaces, and a
+        # tie-length candidate can reshuffle the canonical tie selection — so
+        # any admissible added-edge path at or under the budget forces a
+        # re-enumeration.
+        d_pair_new = hops_to_f32(dist_new[src_n, dst_n])
+        if len(added):
+            au, av = added[:, 0], added[:, 1]
+            # np.ix_ gathers keep the temporaries at (K, |added|) instead of the
+            # (K, N) row gather the chained indexing used to materialize
+            via_added = np.minimum(
+                hops_to_f32(dist_new[np.ix_(src_n, au)])
+                + hops_to_f32(dist_new[np.ix_(dst_n, av)]),
+                hops_to_f32(dist_new[np.ix_(src_n, av)])
+                + hops_to_f32(dist_new[np.ix_(dst_n, au)]),
+            ).min(axis=1) + 1.0  # shortest path length through any added edge
+        else:
+            via_added = np.full(K, np.inf, dtype=np.float32)
+
+        reuse = np.zeros(K, dtype=bool)
+        mi = old_of[matched]  # old commodity index per matched new commodity
+        m_js = np.flatnonzero(matched)
+        unr_old = ps.unrouted[mi]
+        # previously-unrouted pairs stay reusable iff still disconnected
+        still_cut = ~np.isfinite(d_pair_new[m_js])
+        reuse[m_js[unr_old]] = still_cut[unr_old]
+        # routed pairs: intact rows, unchanged distance, no added-edge shortcut
+        r_js = m_js[~unr_old]
+        r_mi = mi[~unr_old]
+        ci = old_kept_of[r_mi]
+        ok = ~broken_kept[ci]
+        ok &= hops_to_f32(dist_old[ps.src[r_mi], ps.dst[r_mi]]) == d_pair_new[r_js]
+        budget = np.where(
+            cnt[ci] >= kk, maxlen[ci].astype(np.float64), d_pair_new[r_js] + ms
+        )
+        ok &= via_added[r_js] > budget
+        reuse[r_js] = ok
+        enum_js = np.flatnonzero(~reuse)
+        pairs = [(int(src_n[j]), int(dst_n[j])) for j in enum_js]
 
     # ---- re-enumerate the rest ------------------------------------------ #
-    enum_js = np.flatnonzero(~reuse)
-    pairs = [(int(src_n[j]), int(dst_n[j])) for j in enum_js]
     with obs.span("build/enum_delta", pairs=len(pairs)):
         if cache:
             enum_paths = k_shortest_paths(
@@ -1779,112 +1797,116 @@ def update_path_system(
                 top_new, pairs, k=kk, max_slack=ms, dist=dist_new,
                 cache=False, use_counts="subset", device=dev,
             )
-    pe_e, len_e, owner_e, kept_e = _paths_to_slots(top_new, entry_new, enum_paths)
+    with obs.span("route/update/slots"):
+        pe_e, len_e, owner_e, kept_e = _paths_to_slots(top_new, entry_new,
+                                                       enum_paths)
 
     # ---- splice (vectorized) --------------------------------------------- #
-    # old directed slot -> new directed slot (surviving edges keep identity
-    # up to renumbering; the sentinel maps to the new sentinel)
-    slot_map = np.full(2 * E_old + 1, 2 * E_new, dtype=np.int32)
-    surv = np.flatnonzero(eid_map >= 0)
-    slot_map[surv] = eid_map[surv].astype(np.int32)
-    slot_map[surv + E_old] = (eid_map[surv] + E_new).astype(np.int32)
+    with obs.span("route/update/splice"):
+        # old directed slot -> new directed slot (surviving edges keep identity
+        # up to renumbering; the sentinel maps to the new sentinel)
+        slot_map = np.full(2 * E_old + 1, 2 * E_new, dtype=np.int32)
+        surv = np.flatnonzero(eid_map >= 0)
+        slot_map[surv] = eid_map[surv].astype(np.int32)
+        slot_map[surv + E_old] = (eid_map[surv] + E_new).astype(np.int32)
 
-    # per new commodity: 0 = unrouted, 1 = spliced from ps, 2 = enumerated
-    stat = np.zeros(K, dtype=np.int8)
-    cnt_j = np.zeros(K, dtype=np.int64)
-    ru_js = np.flatnonzero(reuse & ~ps.unrouted[np.maximum(old_of, 0)] & (old_of >= 0))
-    ru_c = old_kept_of[old_of[ru_js]]
-    stat[ru_js] = 1
-    cnt_j[ru_js] = cnt[ru_c]
-    has_paths = np.fromiter(
-        (len(p) > 0 for p in enum_paths), dtype=bool, count=len(enum_paths)
-    )
-    en_js = enum_js[has_paths]
-    stat[en_js] = 2
-    cnt_j[en_js] = np.diff(
-        np.searchsorted(owner_e, np.arange(int(kept_e) + 1))
-    )
-    unrouted_new = stat == 0
-    # delta telemetry: how much of the update was splice vs re-enumeration
-    obs.counter("route/update/deltas").inc()
-    obs.counter("route/update/spliced").inc(int((stat == 1).sum()))
-    obs.counter("route/update/enumerated").inc(len(enum_js))
-    obs.counter("route/update/unrouted").inc(int(unrouted_new.sum()))
-    obs.instant(
-        "route/update",
-        commodities=K,
-        spliced=int((stat == 1).sum()),
-        enumerated=len(enum_js),
-        unrouted=int(unrouted_new.sum()),
-    )
-
-    kept_js = np.flatnonzero(stat > 0)
-    counts = cnt_j[kept_js]
-    P_new = int(counts.sum())
-    n_seq = len(kept_js)
-    owner_final = np.repeat(np.arange(n_seq, dtype=np.int32), counts)
-    flags = np.repeat(stat[kept_js], counts)
-    old_pos = np.flatnonzero(flags == 1)
-    enum_pos = np.flatnonzero(flags == 2)
-
-    # gather old rows group-by-group in commodity order (vectorized ranges)
-    ru_in_kept = stat[kept_js] == 1
-    c_seq = old_kept_of[old_of[kept_js[ru_in_kept]]]
-    starts, lens = owner_bounds[c_seq], cnt[c_seq]
-    total = int(lens.sum())
-    if total:
-        offs = np.repeat(starts, lens) + (
-            np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        # per new commodity: 0 = unrouted, 1 = spliced from ps, 2 = enumerated
+        stat = np.zeros(K, dtype=np.int8)
+        cnt_j = np.zeros(K, dtype=np.int64)
+        ru_js = np.flatnonzero(
+            reuse & ~ps.unrouted[np.maximum(old_of, 0)] & (old_of >= 0))
+        ru_c = old_kept_of[old_of[ru_js]]
+        stat[ru_js] = 1
+        cnt_j[ru_js] = cnt[ru_c]
+        has_paths = np.fromiter(
+            (len(p) > 0 for p in enum_paths), dtype=bool, count=len(enum_paths)
         )
-        old_rows = owner_sorted[offs]
-    else:
-        old_rows = np.zeros(0, dtype=np.int64)
-    enum_rows = np.arange(len(pe_e), dtype=np.int64)  # pe_e is already in order
+        en_js = enum_js[has_paths]
+        stat[en_js] = 2
+        cnt_j[en_js] = np.diff(
+            np.searchsorted(owner_e, np.arange(int(kept_e) + 1))
+        )
+        unrouted_new = stat == 0
+        # delta telemetry: how much of the update was splice vs re-enumeration
+        obs.counter("route/update/deltas").inc()
+        obs.counter("route/update/spliced").inc(int((stat == 1).sum()))
+        obs.counter("route/update/enumerated").inc(len(enum_js))
+        obs.counter("route/update/unrouted").inc(int(unrouted_new.sum()))
+        obs.instant(
+            "route/update",
+            commodities=K,
+            spliced=int((stat == 1).sum()),
+            enumerated=len(enum_js),
+            unrouted=int(unrouted_new.sum()),
+        )
 
-    w_old = ps.path_edges.shape[1] if len(old_pos) else 0
-    w_new = pe_e.shape[1] if len(enum_pos) else 0
-    lmax = max(w_old, w_new, 1)
-    pe_final = np.full((P_new, lmax), 2 * E_new, dtype=np.int32)
-    len_final = np.zeros(P_new, dtype=np.int32)
-    row_map = np.full(P_new, -1, dtype=np.int64)
-    if len(old_pos):
-        pe_final[old_pos[:, None], np.arange(w_old)[None, :]] = slot_map[
-            ps.path_edges[old_rows]
-        ]
-        len_final[old_pos] = ps.path_len[old_rows]
-        row_map[old_pos] = old_rows
-    if len(enum_pos):
-        pe_final[enum_pos[:, None], np.arange(w_new)[None, :]] = pe_e[enum_rows]
-        len_final[enum_pos] = len_e[enum_rows]
+        kept_js = np.flatnonzero(stat > 0)
+        counts = cnt_j[kept_js]
+        P_new = int(counts.sum())
+        n_seq = len(kept_js)
+        owner_final = np.repeat(np.arange(n_seq, dtype=np.int32), counts)
+        flags = np.repeat(stat[kept_js], counts)
+        old_pos = np.flatnonzero(flags == 1)
+        enum_pos = np.flatnonzero(flags == 2)
 
-    node_paths_new: list[list[list[int]]] | None = None
-    if keep_node_paths and ps.node_paths is not None:
-        node_paths_new = []
-        cursor = {int(j): p for j, p in zip(enum_js, enum_paths)}
-        for j in range(K):
-            if stat[j] == 1:
-                node_paths_new.append(
-                    [[int(nm[x]) for x in p] for p in ps.node_paths[old_of[j]]]
-                )
-            else:
-                node_paths_new.append(cursor.get(j, []))
+        # gather old rows group-by-group in commodity order (vectorized ranges)
+        ru_in_kept = stat[kept_js] == 1
+        c_seq = old_kept_of[old_of[kept_js[ru_in_kept]]]
+        starts, lens = owner_bounds[c_seq], cnt[c_seq]
+        total = int(lens.sum())
+        if total:
+            offs = np.repeat(starts, lens) + (
+                np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+            )
+            old_rows = owner_sorted[offs]
+        else:
+            old_rows = np.zeros(0, dtype=np.int64)
+        enum_rows = np.arange(len(pe_e), dtype=np.int64)  # pe_e is already in order
 
-    ps_new = PathSystem(
-        n_edges=E_new,
-        path_edges=pe_final,
-        path_len=len_final,
-        path_owner=owner_final,
-        demands=comm.demand[~unrouted_new].astype(np.float32),
-        capacities=np.ones(2 * E_new, dtype=np.float32),
-        n_commodities=n_seq,
-        node_paths=node_paths_new,
-        unrouted=unrouted_new,
-        src=src_n.copy(),
-        dst=dst_n.copy(),
-        k=kk,
-        max_slack=ms,
-        row_map=row_map,
-    )
-    if checks_enabled():
-        check_path_system(ps_new, top_new, name="update_path_system")
+        w_old = ps.path_edges.shape[1] if len(old_pos) else 0
+        w_new = pe_e.shape[1] if len(enum_pos) else 0
+        lmax = max(w_old, w_new, 1)
+        pe_final = np.full((P_new, lmax), 2 * E_new, dtype=np.int32)
+        len_final = np.zeros(P_new, dtype=np.int32)
+        row_map = np.full(P_new, -1, dtype=np.int64)
+        if len(old_pos):
+            pe_final[old_pos[:, None], np.arange(w_old)[None, :]] = slot_map[
+                ps.path_edges[old_rows]
+            ]
+            len_final[old_pos] = ps.path_len[old_rows]
+            row_map[old_pos] = old_rows
+        if len(enum_pos):
+            pe_final[enum_pos[:, None], np.arange(w_new)[None, :]] = pe_e[enum_rows]
+            len_final[enum_pos] = len_e[enum_rows]
+
+        node_paths_new: list[list[list[int]]] | None = None
+        if keep_node_paths and ps.node_paths is not None:
+            node_paths_new = []
+            cursor = {int(j): p for j, p in zip(enum_js, enum_paths)}
+            for j in range(K):
+                if stat[j] == 1:
+                    node_paths_new.append(
+                        [[int(nm[x]) for x in p] for p in ps.node_paths[old_of[j]]]
+                    )
+                else:
+                    node_paths_new.append(cursor.get(j, []))
+
+        ps_new = PathSystem(
+            n_edges=E_new,
+            path_edges=pe_final,
+            path_len=len_final,
+            path_owner=owner_final,
+            demands=comm.demand[~unrouted_new].astype(np.float32),
+            capacities=np.ones(2 * E_new, dtype=np.float32),
+            n_commodities=n_seq,
+            node_paths=node_paths_new,
+            unrouted=unrouted_new,
+            src=src_n.copy(),
+            dst=dst_n.copy(),
+            k=kk,
+            max_slack=ms,
+            row_map=row_map,
+        )
+        if checks_enabled():
+            check_path_system(ps_new, top_new, name="update_path_system")
     return ps_new

@@ -16,6 +16,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import obs
 from .topology import Topology
 
 __all__ = [
@@ -70,6 +71,7 @@ def random_server_permutation(
     return perm
 
 
+@obs.spanned("traffic/extend_permutation")
 def extend_server_permutation(
     perm: np.ndarray, n_servers: int, seed: int | np.random.Generator = 0
 ) -> np.ndarray:
@@ -96,6 +98,7 @@ def extend_server_permutation(
     return out
 
 
+@obs.spanned("traffic/commodities")
 def permutation_commodities(top: Topology, perm: np.ndarray) -> Commodities:
     """Aggregate a server-level permutation to switch-level commodities."""
     host = _server_to_switch(top)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..analysis.registry import AuditCase, solver_entry
 from ..device import is_cuda, resolve
 from .congestion import congestion as _congestion
@@ -250,6 +251,7 @@ def apsp_minplus_blocked(  # repro-lint: disable=JF100 host loop of the products
     return cur.cpu().numpy()
 
 
+@obs.spanned("spectral/lambda2")
 def power_iteration_lambda2(  # repro-lint: disable=JF100 host loop of matmul
     adj,
     iters: int = 300,
@@ -276,6 +278,7 @@ def power_iteration_lambda2(  # repro-lint: disable=JF100 host loop of matmul
     dev = resolve(device)
     a = torch.as_tensor(adj, dtype=torch.float32).to(dev)
     n = a.shape[0]
+    obs.annotate(n=n, iters=iters, block=block)
     deg = a.sum(dim=1)
     c = 2.0 * deg.max() + 1.0
     ones = torch.ones((n, 1), dtype=torch.float32, device=dev) / float(np.sqrt(n))

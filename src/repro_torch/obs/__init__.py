@@ -1,23 +1,25 @@
-"""`repro_torch.obs` — host-boundary tracing and solver telemetry.
+"""`repro_torch.obs` — host spans on the device trace's clock, and solver
+telemetry.
 
-The port's copy of ``repro.obs``:
-
-* :mod:`repro_torch.obs.trace` — hierarchical host-boundary spans with JSONL
-  and Chrome-trace (Perfetto) export, gated by ``REPRO_TRACE``.
-* :mod:`repro_torch.obs.metrics` — counters / gauges / log2-histograms, and
-  the event bus the kernels' ``nvcc`` builds publish into.
-* :mod:`repro_torch.obs.bench` — the benchmark timing / memory helpers
+* :mod:`repro_torch.obs.trace` — hierarchical host spans, gated by
+  ``REPRO_TRACE``.  A live span is also a ``torch.profiler`` label
+  ``repro/<name>``, so a profiled run shows each span in the same Kineto
+  trace as the device operations, on the same clock; the spans also
+  export to JSONL and Chrome-trace (Perfetto) files.
+* :mod:`repro_torch.obs.metrics` — counters and gauges, and the event bus
+  the kernels' ``nvcc`` builds publish into.
+* :mod:`repro_torch.obs.bench` — the timing / memory helpers
   (``Timer(device=...)`` synchronizes the card before each clock read).
 
 ``python -m repro_torch.obs report`` summarizes saved trace JSONL;
 ``python -m repro_torch.obs smoke [--device cpu|cuda]`` runs a traced toy
 solve and checks it against an untraced one.
 
-Spans sit only at host boundaries (window edges, shard edges), never between
-a kernel launch and the work that feeds it, so a traced run launches the same
-kernels on the same inputs as an untraced one.  This package imports only the
-stdlib and ``repro_torch.env`` (``bench`` imports torch only when a device
-is given).
+No span or counter synchronises the device: spans time the host, device
+time comes from the profiler's trace, and a traced run launches the same
+kernels on the same inputs as an untraced one (INVARIANTS.md OB-1).  This
+package imports only the stdlib and ``repro_torch.env``; torch is imported
+when the first span goes live (``bench``: when a device is given).
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ from __future__ import annotations
 from .bench import (
     Timer,
     count_compiles,
-    perf_record,
     ru_maxrss_mb,
     timed,
     timed_peak,
@@ -33,11 +34,9 @@ from .bench import (
 from .metrics import (
     Counter,
     Gauge,
-    Hist2,
     counter,
     emit,
     gauge,
-    hist,
     reset_metrics,
     snapshot,
     subscribe,
@@ -46,6 +45,7 @@ from .metrics import (
 from .trace import (
     Span,
     TRACE_OUT,
+    annotate,
     chrome_trace_events,
     counter_event,
     get_events,
@@ -54,6 +54,7 @@ from .trace import (
     reset_trace,
     set_trace,
     span,
+    spanned,
     trace_enabled,
     validate_chrome_trace,
     write_chrome_trace,
@@ -63,10 +64,10 @@ from .trace import (
 __all__ = [
     "Counter",
     "Gauge",
-    "Hist2",
     "Span",
     "TRACE_OUT",
     "Timer",
+    "annotate",
     "chrome_trace_events",
     "count_compiles",
     "counter",
@@ -75,15 +76,14 @@ __all__ = [
     "gauge",
     "get_events",
     "get_spans",
-    "hist",
     "instant",
-    "perf_record",
     "reset_metrics",
     "reset_trace",
     "ru_maxrss_mb",
     "set_trace",
     "snapshot",
     "span",
+    "spanned",
     "subscribe",
     "timed",
     "timed_peak",

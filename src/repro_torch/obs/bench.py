@@ -1,9 +1,7 @@
 """Shared benchmark measurement helpers — ONE timing/memory schema.
 
 The port of ``repro/obs/bench.py``: ``Timer``, ``timed``, ``timed_peak``,
-``ru_maxrss_mb``, ``count_compiles`` and ``perf_record``, so every
-measurement of the port reports the same ``perf_record`` keys (wall
-seconds, tracemalloc peak, ru_maxrss, compile count) as the reference's.
+``ru_maxrss_mb`` and ``count_compiles``.
 
 Device time: ``Timer``, ``timed`` and ``timed_peak`` take an optional
 ``device``; when it is a CUDA device they call
@@ -40,7 +38,6 @@ __all__ = [
     "CompileCounter",
     "Timer",
     "count_compiles",
-    "perf_record",
     "ru_maxrss_mb",
     "timed",
     "timed_peak",
@@ -146,26 +143,3 @@ def count_compiles():
         yield c
     finally:
         _metrics.unsubscribe(on_event)
-
-
-def perf_record(name: str, seconds: float, *,
-                tracemalloc_peak_bytes: int | None = None,
-                compiles: int | None = None,
-                **extra) -> dict:
-    """The one benchmark-row schema: name + wall + memory (+ compiles).
-
-    ``ru_maxrss_mb`` is stamped here (it is free and always meaningful);
-    callers add whatever derived fields they report via ``extra``.  The
-    keys are the reference's.
-    """
-    rec = {
-        "name": name,
-        "seconds": float(seconds),
-        "ru_maxrss_mb": ru_maxrss_mb(),
-    }
-    if tracemalloc_peak_bytes is not None:
-        rec["tracemalloc_peak_bytes"] = int(tracemalloc_peak_bytes)
-    if compiles is not None:
-        rec["compiles"] = int(compiles)
-    rec.update(extra)
-    return rec

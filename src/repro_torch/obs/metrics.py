@@ -1,45 +1,37 @@
-"""Counters / gauges / log2-histograms + the obs event bus.
+"""Counters / gauges + the obs event bus.
 
 Solver telemetry that a span timeline can't express: HOW MANY commodities
 a delta update spliced vs re-enumerated, how far the MW alpha got per
-window and why the solve stopped, how much of a streamed build the
-consumer actually overlapped.  All host-side Python over plain dicts —
-instruments live at host boundaries only (INVARIANTS.md OB-1), so they
-can never perturb a jitted computation.
-
-Port copy of ``repro/obs/metrics.py`` (stdlib only), carried over unchanged
-apart from this note; the port's solvers call the same spans and counters.
+window and why the solve stopped, how many loads products and blocking
+host reads a simulated step made, which congestion backend ``auto`` chose.
+All host-side Python over plain dicts: an update never touches a tensor,
+so it can never perturb the device's work (INVARIANTS.md OB-1).
 
 Metric types
 ------------
 * :class:`Counter` — monotone accumulator (int or float; ``inc``).
 * :class:`Gauge` — last-write-wins value (``set``).
-* :class:`Hist2` — log2-binned histogram (bin ``b`` holds values in
-  ``[2^b, 2^(b+1))``; zeros/negatives land in the underflow bin), the same
-  binning discipline the sim's FCT histogram uses, with exact sum/count so
-  means stay exact.
 
 Unlike the tracer there is no off switch: a metric update is a dict lookup
-and an add under the GIL, and every call site sits at a host boundary that
-runs tens-to-hundreds of times per solve — the cost is unmeasurable
-against an XLA dispatch.  ``snapshot()`` serializes everything;
-``reset_metrics()`` zeroes the registry (benches bracket a run with both).
+and an add under a lock, and every call site runs at most a few times per
+solve window or per ``_run_steps`` call (a hot loop tallies locally and
+adds once).  ``snapshot()`` serializes everything; ``reset_metrics()``
+zeroes the registry (benches bracket a run with both).
 
 Event bus
 ---------
 ``subscribe(fn)`` / ``emit(name, **attrs)`` is the minimal fan-out that
 lets process-wide event sources decouple from their consumers.  The
-canonical producer is ``repro.analysis.retrace``'s ``jax.monitoring``
-listener, which forwards every XLA ``backend_compile`` event here; every
-``emit`` increments the counter ``event/{name}`` (so compile counts fold
-into metric snapshots for free) and — when tracing is enabled — records a
-trace instant, so compiles show up on the Perfetto timeline exactly where
-they stalled the sweep.  ``track_compiles()`` is a bus subscriber.
+canonical producer is ``kernels._build.build_all``, which publishes one
+``cuda/nvcc_build`` event per compiled kernel source; every ``emit``
+increments the counter ``event/{name}`` (so build counts fold into metric
+snapshots for free) and — when tracing is enabled — records a trace
+instant, so builds show on the timeline where they stalled the run.
+``obs.bench.count_compiles`` is a bus subscriber.
 """
 
 from __future__ import annotations
 
-import math
 import threading
 from typing import Any, Callable
 
@@ -48,11 +40,9 @@ from . import trace as _trace
 __all__ = [
     "Counter",
     "Gauge",
-    "Hist2",
     "counter",
     "emit",
     "gauge",
-    "hist",
     "reset_metrics",
     "snapshot",
     "subscribe",
@@ -96,47 +86,6 @@ class Gauge:
         return self.value
 
 
-#: Underflow bin index for values <= 0 (no finite log2).
-_UNDERFLOW = -1
-
-
-class Hist2:
-    """Log2-binned histogram with exact sum/count.
-
-    ``observe(v)`` increments bin ``floor(log2(v))`` (values in
-    ``[2^b, 2^(b+1))`` share bin ``b``); ``v <= 0`` lands in the underflow
-    bin.  Bins are a sparse dict, so microsecond stalls and 200-second
-    builds coexist without preallocating a range.
-    """
-
-    __slots__ = ("name", "bins", "total", "count")
-
-    def __init__(self, name: str) -> None:
-        self.name = name
-        self.bins: dict[int, int] = {}
-        self.total: float = 0.0
-        self.count: int = 0
-
-    def observe(self, v: float) -> None:
-        v = float(v)
-        b = math.floor(math.log2(v)) if v > 0 else _UNDERFLOW
-        with _LOCK:
-            self.bins[b] = self.bins.get(b, 0) + 1
-            self.total += v
-            self.count += 1
-
-    def mean(self) -> float:
-        return self.total / self.count if self.count else 0.0
-
-    def to_value(self) -> dict:
-        return {
-            "bins": {str(k): v for k, v in sorted(self.bins.items())},
-            "sum": self.total,
-            "count": self.count,
-            "mean": self.mean(),
-        }
-
-
 _REG: dict[str, Any] = {}
 
 
@@ -164,13 +113,8 @@ def gauge(name: str) -> Gauge:
     return _get(name, Gauge)
 
 
-def hist(name: str) -> Hist2:
-    return _get(name, Hist2)
-
-
 def snapshot() -> dict:
-    """``{name: value}`` for every registered metric (hists expand to
-    their bin dict + exact sum/count/mean)."""
+    """``{name: value}`` for every registered metric."""
     with _LOCK:
         items = list(_REG.items())
     return {name: m.to_value() for name, m in sorted(items)}

@@ -1,46 +1,51 @@
-"""Hierarchical host-boundary span tracer (`repro.obs`).
+"""Hierarchical host spans on the device trace's clock.
 
-The repo's machinery got fast by moving work onto one jitted scan per
-horizon, but that made it *invisible*: a sweep is a handful of opaque
-multi-second XLA dispatches stitched together by host-side enumeration,
-prefetch threads, and window loops.  This module records what the HOST
-does between those dispatches — where build time, solve windows, segment
-scans, and prefetch stalls actually go — as a tree of spans that exports
-to JSONL and to the Chrome-trace event format Perfetto loads directly.
-
-Port copy of ``repro/obs/trace.py`` (stdlib only), carried over unchanged
-apart from this note; the port's solvers call the same spans and counters.
+The port's solvers are Python loops that queue CUDA work: a probe is a host
+path build (APSP, slack budgets, frontier enumeration, slot assembly) and
+then a batched MW solve; a simulated step is a few dozen kernel launches
+and two blocking host reads; an expansion step mutates the topology on the
+host before its delta routing.  A device trace alone shows the card idle
+between launches and cannot say why.  This module records what the HOST
+does, as a tree of named spans that exports to JSONL and to the
+Chrome-trace event format, and names each span in the device trace too.
 
 Design constraints (INVARIANTS.md OB-1):
 
-* **Spans live only at host boundaries** — window edges, segment edges,
-  shard edges, whole-bench edges.  Never inside jitted code: a span in a
-  traced function would need an ``io_callback`` (rule JF104 forbids it in
-  scan bodies) and would serialize the scan.  Because instrumentation
-  never enters a jaxpr, a traced run executes the IDENTICAL compiled
-  program as an untraced one — bit-identical results, asserted by
-  ``tests/test_obs.py`` over an MW solve and a ``simulate_events`` chain.
+* **A span is a profiler label.**  While a span is live it also opens a
+  ``torch.profiler`` label ``repro/<name>`` (a ``RecordFunction``), so a
+  ``torch.profiler`` run shows the span in the same Kineto trace as the
+  device operations, on the same clock, nested under whatever labels the
+  caller opened (a benchmark's own, say).  The label is the fast
+  ``RecordFunction`` form, which the profiler keeps on the host timeline
+  only: it adds no event to the device timeline.  No span synchronises
+  the device: spans time the host, device time comes from the trace, and
+  a traced run launches the same kernels on the same inputs as an
+  untraced one, so its results are bit-identical (asserted by
+  ``tests/test_torch_obs.py``).
 * **Zero-overhead off switch** — ``REPRO_TRACE`` (validated through the
-  ``repro.env`` registry like every knob) seeds the process default;
+  ``repro_torch.env`` registry like every knob) seeds the process default;
   ``span()`` returns one shared no-op context manager when disabled, so
-  the instrumented hot paths pay an ``if`` and a dict build per *host
-  boundary* (windows are 50 iterations; segments are hundreds of steps).
+  the instrumented paths pay one flag test and a kwargs dict a span.  The
+  disabled path imports nothing; torch is imported the first time a span
+  goes live, so this module stays importable without torch.
 * **Cheap measurements only while enabled** — wall clock
-  (``perf_counter``), thread id, ``ru_maxrss`` watermark (one syscall),
-  and a tracemalloc delta ONLY when the caller already started
-  tracemalloc (hooking every allocation inflates numpy-heavy wall clock
-  1.3-2x; the tracer must not do that behind the bench's back — the
-  ``<5%% overhead`` acceptance row would be meaningless).
+  (``perf_counter``), thread id, the ``ru_maxrss`` watermark as last read
+  (``getrusage`` at most every ``RSS_EVERY_S``: on an H100 machine's host
+  one call took ~95 us, more than the rest of a span), and a tracemalloc
+  delta ONLY when the caller already started tracemalloc (hooking every
+  allocation inflates numpy-heavy wall clock 1.3-2x behind the caller's
+  back).
 
 Spans nest per thread: a build running on the ``stream_builds`` prefetch
 worker records its own thread id and parents correctly under whatever
-span that worker was asked to run inside, which is exactly what makes the
-Perfetto view show host/device overlap as two lanes.
+span that worker was asked to run inside, so the Chrome trace shows the
+prefetch and the consumer as two lanes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -54,6 +59,7 @@ from .. import env
 __all__ = [
     "Span",
     "TRACE_OUT",
+    "annotate",
     "counter_event",
     "get_events",
     "get_spans",
@@ -61,6 +67,7 @@ __all__ = [
     "reset_trace",
     "set_trace",
     "span",
+    "spanned",
     "trace_enabled",
     "write_chrome_trace",
     "write_jsonl",
@@ -102,7 +109,7 @@ class Span:
     depth: int
     t0: float  # perf_counter seconds (process-relative timeline)
     wall_s: float
-    rss_mb: float  # ru_maxrss watermark at span exit (process lifetime mark)
+    rss_mb: float  # ru_maxrss watermark, read at most RSS_EVERY_S before exit
     trmalloc_delta: int | None  # bytes, only when tracemalloc was tracing
     attrs: dict
 
@@ -125,11 +132,23 @@ class Span:
         return rec
 
 
-def _rss_mb() -> float:
-    """Process peak RSS in MiB (ru_maxrss is KiB on Linux)."""
-    import resource
+#: Seconds between two reads of the process's RSS watermark.
+RSS_EVERY_S = 0.1
 
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+_rss_read = [float("-inf"), 0.0]  # [perf_counter at the read, MiB]
+
+
+def _rss_mb() -> float:
+    """Process peak RSS in MiB (ru_maxrss is KiB on Linux), as read at most
+    ``RSS_EVERY_S`` ago: a watermark only rises, and a span loop at a few
+    hundred spans a second must not pay a ``getrusage`` each."""
+    now = time.perf_counter()
+    if now - _rss_read[0] >= RSS_EVERY_S:
+        import resource
+
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+        _rss_read[:] = [now, rss]
+    return _rss_read[1]
 
 
 class _Tracer:
@@ -142,7 +161,8 @@ class _Tracer:
         self.spans: list[Span] = []
         self.events: list[dict] = []  # instant + counter events
 
-    def _stack(self) -> list[int]:
+    def _stack(self) -> list:
+        """This thread's live spans, innermost last."""
         st = getattr(self._local, "stack", None)
         if st is None:
             st = []
@@ -173,22 +193,40 @@ class _Tracer:
 _TRACER = _Tracer()
 
 
+#: ``torch``'s fast profiler label, imported at the first live span.
+_LABEL = None
+
+
+def _label(name: str):
+    """A ``RecordFunctionFast`` label: a host-side operator in the
+    profiler's trace, which the profiler does not mirror on the device
+    timeline (a ``record_function`` user annotation it does mirror)."""
+    global _LABEL
+    if _LABEL is None:
+        import torch
+
+        _LABEL = torch._C._profiler._RecordFunctionFast
+    return _LABEL(name)
+
+
 class _SpanCtx:
     """Live span context manager (only ever constructed while enabled)."""
 
     __slots__ = ("name", "attrs", "span_id", "parent_id", "depth", "t0",
-                 "_tm0")
+                 "_tm0", "_label")
 
     def __init__(self, name: str, attrs: dict) -> None:
         self.name = name
         self.attrs = attrs
 
     def __enter__(self) -> "_SpanCtx":
+        self._label = _label(f"repro/{self.name}")
+        self._label.__enter__()
         stack = _TRACER._stack()
-        self.parent_id = stack[-1] if stack else -1
+        self.parent_id = stack[-1].span_id if stack else -1
         self.depth = len(stack)
         self.span_id = _TRACER.new_id()
-        stack.append(self.span_id)
+        stack.append(self)
         self._tm0 = (
             tracemalloc.get_traced_memory()[0]
             if tracemalloc.is_tracing()
@@ -199,8 +237,9 @@ class _SpanCtx:
 
     def __exit__(self, *exc: Any) -> None:
         wall = time.perf_counter() - self.t0
+        self._label.__exit__(*exc)
         stack = _TRACER._stack()
-        if stack and stack[-1] == self.span_id:
+        if stack and stack[-1] is self:
             stack.pop()
         delta = None
         if self._tm0 is not None and tracemalloc.is_tracing():
@@ -237,10 +276,12 @@ _NOOP = _NoopCtx()
 
 
 def span(name: str, **attrs: Any):
-    """Context manager timing one named host-boundary interval.
+    """Context manager timing one named host interval, and labelling it
+    ``repro/<name>`` for ``torch.profiler``.
 
         with obs.span("build/shard", pairs=128, tile=shape):
             ...host enumeration...
+            obs.annotate(found=n)  # attributes known only inside
 
     Disabled (``REPRO_TRACE`` unset / :func:`set_trace(False)`), returns a
     shared no-op object: the call costs one flag test and the kwargs dict.
@@ -248,6 +289,38 @@ def span(name: str, **attrs: Any):
     if not _trace_default:
         return _NOOP
     return _SpanCtx(name, attrs)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function is the span ``name``.
+
+        @obs.spanned("mw/solve")
+        def mw_concurrent_flow(ps, ...):
+            obs.annotate(paths=ps.n_paths)
+
+    Disabled, a call costs one flag test more than the bare function.
+    """
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args: Any, **kwargs: Any):
+            if not _trace_default:
+                return fn(*args, **kwargs)
+            with _SpanCtx(name, {}):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def annotate(**attrs: Any) -> None:
+    """Add attributes to this thread's innermost live span, if tracing."""
+    if not _trace_default:
+        return
+    stack = _TRACER._stack()
+    if stack:
+        stack[-1].attrs.update(attrs)
 
 
 def instant(name: str, **attrs: Any) -> None:

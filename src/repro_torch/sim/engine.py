@@ -49,7 +49,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .. import env
+from .. import env, obs
 from ..analysis.contracts import check_sim_state, checks_enabled
 from ..analysis.registry import AuditCase, solver_entry
 from ..core.flow import (
@@ -168,7 +168,8 @@ def _slot_min_gather(per_path: torch.Tensor, L: int, n_slots: int,
 
 
 def _ordered_scatter_add(acc: torch.Tensor, idx: torch.Tensor,
-                         vals: torch.Tensor) -> torch.Tensor:
+                         vals: torch.Tensor, tally: dict | None = None
+                         ) -> torch.Tensor:
     """``acc[b, idx[b, m]] += vals[b, m]`` applied in ascending ``m`` order
     per target, as XLA's CPU scatter-add applies its updates, with no
     atomic race on any device.
@@ -177,7 +178,8 @@ def _ordered_scatter_add(acc: torch.Tensor, idx: torch.Tensor,
     to the same target; each round adds the updates of one rank, so a
     target receives at most one non-zero addend a round (the others add
     +0.0, an exact identity, to whatever target they name).  Costs one
-    host read of the largest rank.
+    host read of the largest rank, counted in ``tally["host_syncs"]`` when
+    a tally is given.
     """
     B, M = idx.shape
     live = vals != 0
@@ -192,6 +194,8 @@ def _ordered_scatter_add(acc: torch.Tensor, idx: torch.Tensor,
         1, perm, pos - first)
     rank = torch.where(live, rank, -1)
     n_rounds = int(rank.max()) + 1 if M else 0
+    if M and tally is not None:
+        tally["host_syncs"] += 1
     for r in range(n_rounds):
         sel = rank == r
         add = torch.where(sel, vals, 0.0)
@@ -643,7 +647,13 @@ def _run_steps(c: dict, inp: dict, logits_epochs, eos, stream, size_params,
                cfg: SimConfig, policy: str):
     """Advance the carry ``c`` through every step of ``stream`` over the
     batch tables ``inp`` (``_batch_inputs``); returns the per-step
-    (throughput, active, blackholed), each (T, B)."""
+    (throughput, active, blackholed), each (T, B).
+
+    Counts ``sim/steps``, ``sim/loads_calls`` (calls of the loads product,
+    whatever the backend) and ``sim/host_syncs`` (blocking device-to-host
+    reads), each from a local tally, once a call; each step is the span
+    ``sim/step`` with the children ``select``, ``place``, ``waterfill``
+    and ``drain``."""
     tabs, owner_pad, P = inp["tabs"], inp["owner_pad"], inp["p_max"]
     rows_tab, rows_cnt = inp["rows_tab"], inp["rows_cnt"]
     comm_src, comm_dst = inp["comm_src"], inp["comm_dst"]
@@ -670,144 +680,173 @@ def _run_steps(c: dict, inp: dict, logits_epochs, eos, stream, size_params,
         bidx3 = torch.arange(B, device=dev)[:, None, None]
         bidx4 = bidx3[..., None]
     p_el, size_mice, size_el = (float(x) for x in size_params)
+    tally = {"loads_calls": 0, "host_syncs": 0}
+
+    def loads_of(rates):
+        tally["loads_calls"] += 1
+        return tabs.loads_of(rates)
+
     thr_t, nact_t, bh_t = [], [], []
     for t in range(T):
-        row, rem, age, fid_c, hold = (c[k] for k in
-                                      ("row", "rem", "age", "fid", "hold"))
-        # ---- arrivals: Poisson count, commodity draw, size draw ---------- #
-        has_comm = has_comm_e[int(eos[t])]
-        n_p = n_poisson[t]
-        n_new = torch.where(has_comm, torch.clamp_max(n_p, A), 0)
-        # arrivals past the per-step cap never materialize — count them as
-        # drops so the offered load the run reports stays honest
-        c["drops"] = c["drops"] + torch.where(has_comm, n_p - n_new, 0)
-        cand_live = arange_a[None, :] < n_new[:, None]  # (B, A)
-        comm = comm_all[t]
-        size = torch.where(eleph_all[t], size_el, size_mice).to(_F32)
-        fid = (c["next_id"][:, None] + arange_a) & _MASK32
-        c["next_id"] = (c["next_id"] + n_new) & _MASK32
+        with obs.span("sim/step", t=t):
+            row, rem, age, fid_c, hold = (c[k] for k in
+                                          ("row", "rem", "age", "fid", "hold"))
+            # ---- arrivals: Poisson count, commodity draw, size draw ------- #
+            with obs.span("sim/step/select"):
+                has_comm = has_comm_e[int(eos[t])]
+                n_p = n_poisson[t]
+                n_new = torch.where(has_comm, torch.clamp_max(n_p, A), 0)
+                # arrivals past the per-step cap never materialize — count
+                # them as drops so the offered load the run reports stays
+                # honest
+                c["drops"] = c["drops"] + torch.where(has_comm, n_p - n_new, 0)
+                cand_live = arange_a[None, :] < n_new[:, None]  # (B, A)
+                comm = comm_all[t]
+                size = torch.where(eleph_all[t], size_el, size_mice).to(_F32)
+                fid = (c["next_id"][:, None] + arange_a) & _MASK32
+                c["next_id"] = (c["next_id"] + n_new) & _MASK32
 
-        crows = torch.gather(rows_tab, 1, comm[:, :, None].expand(B, A, D))
-        ccnt = torch.gather(rows_cnt, 1, comm)  # (B, A)
-        cand_live = cand_live & (ccnt > 0)
+                crows = torch.gather(rows_tab, 1,
+                                     comm[:, :, None].expand(B, A, D))
+                ccnt = torch.gather(rows_cnt, 1, comm)  # (B, A)
+                cand_live = cand_live & (ccnt > 0)
 
-        # ---- path selection --------------------------------------------- #
-        if policy == "ecmp":
-            csrc = torch.gather(comm_src, 1, comm)
-            cdst = torch.gather(comm_dst, 1, comm)
-            h = flow_hash(csrc, cdst, fid, cfg.salt)
-            j = torch.remainder(h, torch.clamp_min(ccnt, 1))
-            prow = torch.gather(crows, 2, j[:, :, None])[:, :, 0]
-            new_live, new_row, new_rem, new_fid = cand_live, prow, size, fid
-        elif policy == "ksp_lc":
-            # least-congested: bottleneck utilization of each candidate
-            # under the PREVIOUS step's loads (flow-level adaptive routing)
-            relp = torch.cat([c["rel_prev"],
-                              torch.zeros((B, 1), dtype=_F32, device=dev)],
-                             dim=1)
-            hops = pe_pad[bidx3, crows]  # (B, A, D, L)
-            util = relp[bidx4, hops].amax(dim=3)
-            valid = arange_d[None, None, :] < ccnt[:, :, None]
-            util = torch.where(valid, util, float("inf"))
-            j = torch.argmin(util, dim=2)  # first minimum: deterministic
-            prow = torch.gather(crows, 2, j[:, :, None])[:, :, 0]
-            new_live, new_row, new_rem, new_fid = cand_live, prow, size, fid
-        else:  # mptcp: one subflow per candidate path, size split evenly
-            sub = arange_d[None, None, :] < ccnt[:, :, None]
-            new_live = (cand_live[:, :, None] & sub).reshape(B, W_new)
-            new_row = crows.reshape(B, W_new)
-            per = size / torch.clamp_min(ccnt, 1).to(_F32)
-            new_rem = per[:, :, None].expand(B, A, D).reshape(B, W_new)
-            # subflows share the parent's id
-            new_fid = fid[:, :, None].expand(B, A, D).reshape(B, W_new)
+                # ---- path selection --------------------------------------- #
+                if policy == "ecmp":
+                    csrc = torch.gather(comm_src, 1, comm)
+                    cdst = torch.gather(comm_dst, 1, comm)
+                    h = flow_hash(csrc, cdst, fid, cfg.salt)
+                    j = torch.remainder(h, torch.clamp_min(ccnt, 1))
+                    prow = torch.gather(crows, 2, j[:, :, None])[:, :, 0]
+                    new_live, new_row, new_rem, new_fid = (cand_live, prow,
+                                                           size, fid)
+                elif policy == "ksp_lc":
+                    # least-congested: bottleneck utilization of each
+                    # candidate under the PREVIOUS step's loads (flow-level
+                    # adaptive routing)
+                    relp = torch.cat(
+                        [c["rel_prev"],
+                         torch.zeros((B, 1), dtype=_F32, device=dev)], dim=1)
+                    hops = pe_pad[bidx3, crows]  # (B, A, D, L)
+                    util = relp[bidx4, hops].amax(dim=3)
+                    valid = arange_d[None, None, :] < ccnt[:, :, None]
+                    util = torch.where(valid, util, float("inf"))
+                    # first minimum: deterministic
+                    j = torch.argmin(util, dim=2)
+                    prow = torch.gather(crows, 2, j[:, :, None])[:, :, 0]
+                    new_live, new_row, new_rem, new_fid = (cand_live, prow,
+                                                           size, fid)
+                else:  # mptcp: a subflow per candidate path, size split evenly
+                    sub = arange_d[None, None, :] < ccnt[:, :, None]
+                    new_live = (cand_live[:, :, None] & sub).reshape(B, W_new)
+                    new_row = crows.reshape(B, W_new)
+                    per = size / torch.clamp_min(ccnt, 1).to(_F32)
+                    new_rem = per[:, :, None].expand(B, A, D).reshape(B, W_new)
+                    # subflows share the parent's id
+                    new_fid = fid[:, :, None].expand(B, A, D).reshape(B, W_new)
 
-        # ---- place new flows into free slots (live-first packing) -------- #
-        order = torch.argsort((~new_live).to(torch.int8), dim=1, stable=True)
-        new_live = torch.gather(new_live, 1, order)
-        new_row = torch.gather(new_row, 1, order)
-        new_rem = torch.gather(new_rem, 1, order)
-        new_fid = torch.gather(new_fid, 1, order)
-        free = row == P
-        n_free = free.sum(dim=1)  # repro-lint: disable=JF005 bool count
-        target = torch.argsort((~free).to(torch.int8), dim=1,
-                               stable=True)[:, :W_new]  # free slots first
-        place = new_live & (arange_w[None, :] < n_free[:, None])
+            # ---- place new flows into free slots (live-first packing) ----- #
+            with obs.span("sim/step/place"):
+                order = torch.argsort((~new_live).to(torch.int8), dim=1,
+                                      stable=True)
+                new_live = torch.gather(new_live, 1, order)
+                new_row = torch.gather(new_row, 1, order)
+                new_rem = torch.gather(new_rem, 1, order)
+                new_fid = torch.gather(new_fid, 1, order)
+                free = row == P
+                n_free = free.sum(dim=1)  # repro-lint: disable=JF005 bool count
+                # free slots first
+                target = torch.argsort((~free).to(torch.int8), dim=1,
+                                       stable=True)[:, :W_new]
+                place = new_live & (arange_w[None, :] < n_free[:, None])
 
-        def put(x, new):
-            """``x[b, target] = new`` where placed, else unchanged."""
-            cur = torch.gather(x, 1, target)
-            return x.scatter(1, target, torch.where(place, new, cur))
+                def put(x, new):
+                    """``x[b, target] = new`` where placed, else unchanged."""
+                    cur = torch.gather(x, 1, target)
+                    return x.scatter(1, target, torch.where(place, new, cur))
 
-        row = put(row, new_row)
-        rem = put(rem, new_rem)
-        age = put(age, torch.zeros_like(new_rem))
-        fid_c = put(fid_c, new_fid)
-        hold = put(hold, torch.zeros_like(new_fid))
-        c["drops"] = c["drops"] + (new_live & ~place).sum(dim=1)  # repro-lint: disable=JF005 bool count
-        c["admitted"] = c["admitted"] + place.sum(dim=1)  # repro-lint: disable=JF005 bool count
-        cnew = torch.gather(owner_pad, 1, new_row)  # (B, W_new)
-        c["comm_off"] = _ordered_scatter_add(
-            c["comm_off"], cnew, torch.where(place, new_rem, 0.0))
+                row = put(row, new_row)
+                rem = put(rem, new_rem)
+                age = put(age, torch.zeros_like(new_rem))
+                fid_c = put(fid_c, new_fid)
+                hold = put(hold, torch.zeros_like(new_fid))
+                c["drops"] = c["drops"] + (new_live & ~place).sum(dim=1)  # repro-lint: disable=JF005 bool count
+                c["admitted"] = c["admitted"] + place.sum(dim=1)  # repro-lint: disable=JF005 bool count
+                cnew = torch.gather(owner_pad, 1, new_row)  # (B, W_new)
+                c["comm_off"] = _ordered_scatter_add(
+                    c["comm_off"], cnew, torch.where(place, new_rem, 0.0),
+                    tally)
 
-        # ---- max-min waterfilling over path rows ------------------------- #
-        # Held flows (hold > 0) blackhole: they neither consume capacity
-        # nor deliver.  Plain ``simulate`` never sets ``hold``.
-        active = row < P
-        held = active & (hold > 0)
-        flowing = active & ~held
-        # flow counts add 1.0s: exact in any order below 2^24
-        nflow = torch.zeros((B, P + 1), dtype=_F32, device=dev)
-        nflow = nflow.scatter_add(  # repro-lint: disable=JF005 exact, see above
-            1, row, flowing.to(_F32))[:, :P]
-        rate_p, loads = _waterfill_core(
-            tabs.loads_of, tabs.hop_cols, nflow, tabs.cap, tabs.sval,
-            cfg.wf_iters, tabs.slot_cols, rule=cfg.wf_rule)
-        rel = loads * tabs.inv  # (B, S) relative link loads
+            # ---- max-min waterfilling over path rows ---------------------- #
+            with obs.span("sim/step/waterfill"):
+                # Held flows (hold > 0) blackhole: they neither consume
+                # capacity nor deliver.  Plain ``simulate`` never sets
+                # ``hold``.
+                active = row < P
+                held = active & (hold > 0)
+                flowing = active & ~held
+                # flow counts add 1.0s: exact in any order below 2^24
+                nflow = torch.zeros((B, P + 1), dtype=_F32, device=dev)
+                nflow = nflow.scatter_add(  # repro-lint: disable=JF005 exact, see above
+                    1, row, flowing.to(_F32))[:, :P]
+                rate_p, loads = _waterfill_core(
+                    loads_of, tabs.hop_cols, nflow, tabs.cap, tabs.sval,
+                    cfg.wf_iters, tabs.slot_cols, rule=cfg.wf_rule)
+                rel = loads * tabs.inv  # (B, S) relative link loads
 
-        # ---- drain flows, record completions ----------------------------- #
-        rate_pad = torch.cat([rate_p, torch.zeros((B, 1), dtype=_F32,
-                                                  device=dev)], dim=1)
-        r_f = torch.gather(rate_pad, 1, row)  # (B, F)
-        delivered = torch.minimum(rem, r_f * dt) * flowing.to(_F32)
-        bh = torch.where(held, torch.clamp_max(rem, cfg.bh_rate * dt), 0.0)
-        rem = rem - delivered - bh
-        age = torch.where(active, age + 1.0, age)
-        fin = active & (rem <= 1e-6)  # slot frees either way
-        done = fin & ~held  # only flows that finished delivering record FCT
-        # _fold_sum: F is a padded axis, the sum must not depend on it
-        c["fct_sum"] = c["fct_sum"] + _fold_sum(
-            torch.where(done, age * dt, 0.0))
-        c["fct_cnt"] = c["fct_cnt"] + done.sum(dim=1)  # repro-lint: disable=JF005 bool count
-        # floor(log2(age)) of an integer-valued age >= 1, exactly: frexp's
-        # exponent.  XLA:CPU's log2 rounds 8192 and 32768 just below the
-        # power (checked up to 2^21), so ages of exactly 8192 or 32768
-        # steps fall one bin lower in the reference; no other age differs.
-        _, expo = torch.frexp(torch.clamp_min(age, 1.0))
-        bins = torch.clamp(expo.to(_I64) - 1, 0, nbins - 1)
-        # histogram counts add 1.0s: exact in any order below 2^24
-        c["fct_hist"] = c["fct_hist"].scatter_add(  # repro-lint: disable=JF005 exact, see above
-            1, torch.where(done, bins, nbins), torch.ones_like(rem))
-        cflow = torch.gather(owner_pad, 1, row)  # (B, F)
-        c["comm_del"] = _ordered_scatter_add(c["comm_del"], cflow, delivered)
-        c["util_sum"] = c["util_sum"] + rel
-        thr_t.append(_fold_sum(delivered))
-        bh_step = _fold_sum(bh)
-        bh_t.append(bh_step)
-        c["bh_sum"] = c["bh_sum"] + bh_step
-        # in flight AFTER completions
-        nact_t.append((active & ~fin).sum(dim=1))  # repro-lint: disable=JF005 bool count
-        c["hold"] = torch.where(fin, 0, torch.clamp_min(hold - 1, 0))
-        c["row"] = torch.where(fin, P, row)
-        c["rem"] = torch.where(fin, 0.0, rem)
-        c["age"] = torch.where(fin, 0.0, age)
-        c["fid"] = fid_c
-        c["rel_prev"] = rel
+            # ---- drain flows, record completions -------------------------- #
+            with obs.span("sim/step/drain"):
+                rate_pad = torch.cat([rate_p, torch.zeros((B, 1), dtype=_F32,
+                                                          device=dev)], dim=1)
+                r_f = torch.gather(rate_pad, 1, row)  # (B, F)
+                delivered = torch.minimum(rem, r_f * dt) * flowing.to(_F32)
+                bh = torch.where(held, torch.clamp_max(rem, cfg.bh_rate * dt),
+                                 0.0)
+                rem = rem - delivered - bh
+                age = torch.where(active, age + 1.0, age)
+                fin = active & (rem <= 1e-6)  # slot frees either way
+                # only flows that finished delivering record FCT
+                done = fin & ~held
+                # _fold_sum: F is a padded axis, the sum must not depend on it
+                c["fct_sum"] = c["fct_sum"] + _fold_sum(
+                    torch.where(done, age * dt, 0.0))
+                c["fct_cnt"] = c["fct_cnt"] + done.sum(dim=1)  # repro-lint: disable=JF005 bool count
+                # floor(log2(age)) of an integer-valued age >= 1, exactly:
+                # frexp's exponent.  XLA:CPU's log2 rounds 8192 and 32768
+                # just below the power (checked up to 2^21), so ages of
+                # exactly 8192 or 32768 steps fall one bin lower in the
+                # reference; no other age differs.
+                _, expo = torch.frexp(torch.clamp_min(age, 1.0))
+                bins = torch.clamp(expo.to(_I64) - 1, 0, nbins - 1)
+                # histogram counts add 1.0s: exact in any order below 2^24
+                c["fct_hist"] = c["fct_hist"].scatter_add(  # repro-lint: disable=JF005 exact, see above
+                    1, torch.where(done, bins, nbins), torch.ones_like(rem))
+                cflow = torch.gather(owner_pad, 1, row)  # (B, F)
+                c["comm_del"] = _ordered_scatter_add(c["comm_del"], cflow,
+                                                     delivered, tally)
+                c["util_sum"] = c["util_sum"] + rel
+                thr_t.append(_fold_sum(delivered))
+                bh_step = _fold_sum(bh)
+                bh_t.append(bh_step)
+                c["bh_sum"] = c["bh_sum"] + bh_step
+                # in flight AFTER completions
+                nact_t.append((active & ~fin).sum(dim=1))  # repro-lint: disable=JF005 bool count
+                c["hold"] = torch.where(fin, 0, torch.clamp_min(hold - 1, 0))
+                c["row"] = torch.where(fin, P, row)
+                c["rem"] = torch.where(fin, 0.0, rem)
+                c["age"] = torch.where(fin, 0.0, age)
+                c["fid"] = fid_c
+                c["rel_prev"] = rel
+    obs.counter("sim/steps").inc(T)
+    obs.counter("sim/loads_calls").inc(tally["loads_calls"])
+    obs.counter("sim/host_syncs").inc(tally["host_syncs"])
     if not T:
         empty = torch.zeros((0, B), dtype=_F32, device=dev)
         return empty, empty.to(_I64), empty
     return torch.stack(thr_t), torch.stack(nact_t), torch.stack(bh_t)
 
 
+@obs.spanned("sim/simulate")
 def simulate(
     systems: "PathSystemBatch | Sequence[PathSystem]",
     workload,
@@ -843,7 +882,10 @@ def simulate(
             f"workload has {T} steps > REPRO_SIM_MAX_STEPS={SIM_MAX_STEPS}; "
             "raise the env cap or split the horizon"
         )
-    inp = _batch_inputs(batch, policy, cfg, backend, dev)
+    obs.annotate(steps=T, batch=batch.n_batch, policy=policy)
+    with obs.span("sim/inputs"):
+        inp = _batch_inputs(batch, policy, cfg, backend, dev)
+    obs.annotate(backend=inp["backend"])
     B, K = batch.n_batch, inp["n_comm"]
     logits, eos = _epoch_logits(workload, batch, K, T)
     size_params = _size_params(workload)
@@ -855,14 +897,17 @@ def simulate(
 
     carry = _init_carry(B, cfg.max_flows, batch.p_max, batch.s_max, K,
                         cfg.nbins, dev)
-    thr, nact, bh = _run_steps(carry, inp, torch.as_tensor(logits, device=dev),
-                               eos, stream, size_params, cfg, policy)
-    result = _sim_result(
-        carry, inp, cfg, T, policy, throughput=_host(thr),
-        active=_host(nact, np.int32), blackholed=_host(bh),
-        comm_delivered=_host(carry["comm_del"]),
-        comm_offered=_host(carry["comm_off"]),
-        demands=np.asarray(batch.demands))
+    with obs.span("sim/run_steps"):
+        thr, nact, bh = _run_steps(carry, inp,
+                                   torch.as_tensor(logits, device=dev), eos,
+                                   stream, size_params, cfg, policy)
+    with obs.span("sim/result"):
+        result = _sim_result(
+            carry, inp, cfg, T, policy, throughput=_host(thr),
+            active=_host(nact, np.int32), blackholed=_host(bh),
+            comm_delivered=_host(carry["comm_del"]),
+            comm_offered=_host(carry["comm_off"]),
+            demands=np.asarray(batch.demands))
     if checks_enabled():
         check_sim_state(result)
     return result

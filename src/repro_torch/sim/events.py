@@ -627,7 +627,6 @@ def simulate_events(
             nacts.append(_host(nact, np.int32))
             bhs.append(_host(bh))
         obs.counter("sim/segments").inc()
-        obs.counter("sim/steps").inc(int(t1 - t0))
 
     comm_del = _host(carry["comm_del"])
     comm_off = _host(carry["comm_off"])
