@@ -85,17 +85,20 @@ the expand-cluster example there, and prints one JSON line per phase:
                RRG(512, 24, 18), ``steady_poisson(160, rate=24, size=48)``,
                ``SimConfig(max_flows=2048, max_arrivals=32, wf_iters=10)``,
                ONE batched ``simulate`` per policy (``ecmp`` over ECMP path
-               systems, ``ksp_lc`` and ``mptcp`` over k=8; the batched
-               congestion kernel's load half); CT-sim on each, a same-seed
-               rerun equal bit for bit, ``waterfill_rates`` dense against
-               gather within rtol 1e-5, and ECMP's steady throughput dense
-               against gather within rtol 1e-3.  The rerun is traced
-               (``torch.profiler``, device activity): the congestion
-               kernel's device seconds and the device's idle share of its
-               window.  The loads half at the k=8 stack's shape is held
-               against its plain version (rtol 1e-5) and timed with CUDA
-               events beside the plain version, one ``torch.bmm`` and the
-               gather tables.
+               systems, ``ksp_lc`` and ``mptcp`` over k=8; the fan-in
+               kernel, ``auto``'s loads-only choice); CT-sim on each, a
+               same-seed rerun equal bit for bit, ``waterfill_rates`` dense
+               against gather within rtol 1e-5, and ECMP's steady
+               throughput dense against gather within rtol 1e-3.  The rerun
+               is traced (``torch.profiler``, device activity): the loads
+               kernels' device seconds and the device's idle share of its
+               window.  The loads half at the k=8 stack's shape: the fan-in
+               kernel held bit for bit against its plain version, the dense
+               kernel against its own (rtol 1e-5), each timed with CUDA
+               events (the fan-in kernel also by the profiler) beside both
+               plain versions, one ``torch.bmm``, ``torch.sparse.mm`` over
+               each member's CSR transpose and ``portbench/roofline.py``'s
+               bound.
 5. ``bisection``  a whole ``max_servers_at_full_capacity`` search with
                ``method="mw"`` at the k=24 equipment (k=16 when the probe
                shows it would not fit the time budget; ``k_reason`` says
@@ -565,9 +568,16 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+#: The loads kernels a traced ``simulate`` may run: the fan-in kernel
+#: (``auto``) or the dense congestion kernel's band and fold passes.
+LOADS_KERNELS = ("fan_in_kernel", "congestion_band_kernel",
+                 "congestion_fold_kernel")
+
+
 def sim_trace(prof, window_s: float, untraced_s: float) -> dict:
-    """From a device-activity trace of one ``simulate``: the congestion
-    kernel's device seconds (band and fold) and launches, every device operation's seconds
+    """From a device-activity trace of one ``simulate``: the loads
+    kernels' device seconds (``LOADS_KERNELS``) and launches (a fold
+    pass is no launch of its own), every device operation's seconds
     (runtime API entries excluded; one stream, so they do not overlap), and
     their shares of the traced host window.  ``untraced_s`` is the same
     run's seconds without the profiler, beside it for the tracer's cost."""
@@ -577,20 +587,111 @@ def sim_trace(prof, window_s: float, untraced_s: float) -> dict:
         if ev.key.startswith("cuda"):
             continue
         busy_s += ev.device_time_total / 1e6
-        if "congestion_band_kernel" in ev.key:
-            cong_n += ev.count
-        if "congestion_band_kernel" in ev.key or (
-                "congestion_fold_kernel" in ev.key):
+        if any(k in ev.key for k in LOADS_KERNELS):
             cong_s += ev.device_time_total / 1e6
+            if "fold" not in ev.key:
+                cong_n += ev.count
     if busy_s == 0.0:
         return {"timer": "not measured: the profiler saw no device activity",
                 "window_s": window_s, "untraced_s": untraced_s}
     return {"timer": "profiler", "window_s": window_s,
-            "untraced_s": untraced_s, "congestion_device_s": cong_s,
-            "congestion_launches": cong_n, "device_busy_s": busy_s,
-            "congestion_share_of_window": cong_s / window_s,
-            "congestion_share_of_untraced": cong_s / untraced_s,
+            "untraced_s": untraced_s, "loads_device_s": cong_s,
+            "loads_launches": cong_n, "device_busy_s": busy_s,
+            "loads_share_of_window": cong_s / window_s,
+            "loads_share_of_untraced": cong_s / untraced_s,
             "device_idle_share_of_window": 1.0 - busy_s / window_s}
+
+
+def loads_timings(batch, dev) -> dict:
+    """The loads-only product over ``batch``'s members at their extents,
+    each form timed with CUDA events (milliseconds a call): the fan-in
+    kernel (``auto``'s choice, held bit for bit against its plain version,
+    also timed by the profiler), its plain version on the card, the dense
+    congestion kernel with zero prices (against its plain version) and one
+    ``torch.bmm`` over the whole stack, and per member ``torch.sparse.mm``
+    over the CSR transpose of its incidence (a yardstick the port never
+    calls); beside them ``portbench/roofline.py``'s bound for the work."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.roofline import Work, bound_seconds, call_work
+    from repro_torch.core.flow import _stacked_incidence
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.congestion import congestion_ref
+    from repro_torch.kernels.fanin import (
+        fan_in_loads,
+        fan_in_loads_ref,
+        fan_in_table,
+    )
+
+    out = {"shape": [batch.n_batch, batch.p_max, batch.s_max],
+           "fan_in_d": int(batch.slot_gather.shape[-1]), "timer": "events",
+           "tf32": torch.backends.cuda.matmul.allow_tf32}
+    L = batch.path_edges.shape[-1]
+    ext = (batch.n_paths, [ps.n_slots for ps in batch.systems])
+    rates = torch.rand((batch.n_batch, batch.p_max), device=dev)
+    for i, p in enumerate(batch.n_paths.tolist()):
+        rates[i, p:] = 0.0   # as in the engine: padded rows ship nothing
+    tab = fan_in_table(batch.slot_gather, dev)
+    fan = fan_in_loads(tab, rates, L, ext[1])
+    want = fan_in_loads(tab.cpu(), rates.cpu(), L, ext[1])
+    check(torch.equal(fan.cpu().view(torch.int32), want.view(torch.int32)),
+          "the fan-in kernel differs from its plain version")
+    csr = []
+    for i, ps in enumerate(batch.systems):
+        t = batch.slot_gather[i, : ps.n_slots]
+        keep = t < batch.p_max * L
+        crow = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+        csr.append(torch.sparse_csr_tensor(
+            torch.from_numpy(crow),
+            torch.from_numpy((t[keep] // L).astype(np.int64)),
+            torch.ones(int(keep.sum())), (ps.n_slots, batch.p_max)).to(dev))
+    sparse = [torch.sparse.mm(c, rates[i, :, None])[:, 0]
+              for i, c in enumerate(csr)]
+    for i, (s, ps) in enumerate(zip(sparse, batch.systems)):
+        torch.testing.assert_close(s, fan[i, : ps.n_slots], rtol=1e-5,
+                                   atol=1e-6)
+    b3 = _stacked_incidence(torch.as_tensor(batch.path_edges, device=dev),
+                            batch.s_max)
+    zeros = torch.zeros((batch.n_batch, batch.s_max), device=dev)
+    got = ops.congestion_loads(b3, rates, ext)
+    torch.testing.assert_close(got, congestion_ref(b3, rates, zeros, ext)[0],
+                               rtol=1e-5, atol=1e-6)
+    out["dense_vs_fan_in_max_abs"] = float((got - fan).abs().max())
+    for name, fn, reps in (
+            ("fan_in", lambda: fan_in_loads(tab, rates, L, ext[1]), 200),
+            ("plain", lambda: fan_in_loads_ref(tab, rates, L, ext[1]), 20),
+            ("dense", lambda: ops.congestion_loads(b3, rates, ext), 20),
+            ("plain_dense", lambda: congestion_ref(b3, rates, zeros, ext),
+             10),
+            # one library call over the whole padded stack (TF32 off)
+            ("library_bmm", lambda: torch.bmm(rates[:, None, :], b3), 10),
+            ("library_sparse_csr", lambda: [
+                torch.sparse.mm(c, rates[i, :, None])
+                for i, c in enumerate(csr)], 50)):
+        out[name] = events_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            fan_in_loads(tab, rates, L, ext[1])
+        torch.cuda.synchronize()
+    dev_us = [ev.device_time_total / ev.count for ev in prof.key_averages()
+              if "fan_in_kernel" in ev.key and ev.count]
+    out["fan_in_device"] = dev_us[0] / 1e3 if dev_us else \
+        "not measured: the profiler saw no device activity"
+    work = Work()
+    for ps in batch.systems:
+        work.add(call_work(int(np.asarray(ps.path_len).sum()), ps.n_paths,
+                           ps.n_slots, fused=False))
+    out.update({"bound_ms": bound_seconds(work) * 1e3,
+                "bound_bytes": work.bytes, "bound_flops": work.flops})
+    # the dense kernel's own bound: B read once within the extents
+    cells = sum(ps.n_paths * ps.n_slots for ps in batch.systems)
+    edges = sum(ps.n_paths + 2 * ps.n_slots for ps in batch.systems)
+    out["dense_bound_ms"] = bound_ms(4.0 * (cells + edges), 1.0 * cells)[0]
+    del b3, zeros, got, tab, csr
+    torch.cuda.empty_cache()
+    return out
 
 
 def sim_phase(run: PathRun, n_seeds: int = 8, n: int = 512, ports: int = 24,
@@ -694,59 +795,17 @@ def sim_phase(run: PathRun, n_seeds: int = 8, n: int = 512, ports: int = 24,
         check(np.allclose(got, want, rtol=1e-5, atol=1e-6),
               f"waterfill {what}: dense vs gather beyond rtol 1e-5 (max "
               f"{float(np.abs(got - want).max())})")
-    # the waterfill's loads half at this path's shape: the batched
-    # congestion kernel over the members' extents (zero prices), held
-    # against its plain version, and timed with the same CUDA events as the
-    # plain version, one library call and the gather tables
-    loads_t = {}
-    if run.dev.type == "cuda":
-        import torch
-
-        from repro_torch.core.flow import (
-            _stacked_incidence,
-            make_loads_fn_batch,
-        )
-        from repro_torch.kernels import ops
-        from repro_torch.kernels.congestion import congestion_ref
-
-        pe = torch.as_tensor(ksp.path_edges, device=run.dev)
-        ext = (ksp.n_paths, [ps.n_slots for ps in ksp.systems])
-        rates = torch.rand((ksp.n_batch, ksp.p_max), device=run.dev)
-        for i, p in enumerate(ksp.n_paths.tolist()):
-            rates[i, p:] = 0.0   # as in the engine: padded rows ship nothing
-        b3 = _stacked_incidence(pe, ksp.s_max)
-        zeros = torch.zeros((ksp.n_batch, ksp.s_max), device=run.dev)
-        got = ops.congestion_loads(b3, rates, ext)
-        want = congestion_ref(b3, rates, zeros, ext)[0]
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        loads_t["max_abs_err"] = float((got - want).abs().max())
-        gather = make_loads_fn_batch(pe, ksp.s_max, ksp.n_batch, "gather",
-                                     ksp.slot_gather, extents=ext)
-        for name, fn, reps in (
-                ("dense", lambda: ops.congestion_loads(b3, rates, ext), 20),
-                ("plain", lambda: congestion_ref(b3, rates, zeros, ext), 10),
-                # one library call over the whole padded stack (TF32 off)
-                ("library_bmm", lambda: torch.bmm(rates[:, None, :], b3), 10),
-                ("gather", lambda: gather(rates), 20)):
-            loads_t[name] = events_ms(fn, reps)
-        cells = sum(ps.n_paths * ps.n_slots for ps in ksp.systems)
-        edges = sum(ps.n_paths + 2 * ps.n_slots for ps in ksp.systems)
-        # B read once, rates read, loads (and the zero costs) written; one
-        # FMA per entry of B for the loads
-        b_ms, b_by = bound_ms(4.0 * (cells + edges), 1.0 * cells)
-        loads_t.update({"bound_ms": b_ms, "bound_by": b_by, "timer": "events",
-                        "tf32": torch.backends.cuda.matmul.allow_tf32,
-                        "shape": [ksp.n_batch, ksp.p_max, ksp.s_max]})
-        del pe, rates, b3, zeros, got, want, gather
-    # ECMP under gather: the same flows, throughput to the stated tolerance
+    # the waterfill's loads half at this path's shape
+    loads_t = loads_timings(ksp, run.dev) if run.dev.type == "cuda" else {}
+    # ECMP under dense: the same flows, throughput to the stated tolerance
     run.sync()
     t0 = time.perf_counter()
-    eg = simulate(ecmp, wl, policy="ecmp", config=cfg, seed=0,
-                  backend="gather", device=run.dev)
+    ed = simulate(ecmp, wl, policy="ecmp", config=cfg, seed=0,
+                  backend="dense", device=run.dev)
     run.sync()
-    eg_s = time.perf_counter() - t0
-    td = steady_state_throughput(results["ecmp"])
-    tg = steady_state_throughput(eg)
+    ed_s = time.perf_counter() - t0
+    td = steady_state_throughput(ed)
+    tg = steady_state_throughput(results["ecmp"])
     rel = float(np.max(np.abs(td - tg) / np.maximum(np.abs(tg), 1e-12)))
     check(rel <= SIM_ECMP_RTOL, f"sim ecmp steady throughput dense vs "
           f"gather differs by {rel} (rtol {SIM_ECMP_RTOL})")
@@ -759,9 +818,9 @@ def sim_phase(run: PathRun, n_seeds: int = 8, n: int = 512, ports: int = 24,
             "waterfill_dense_vs_gather_max": [
                 float(np.abs(wf["dense"][i] - wf["gather"][i]).max())
                 for i in range(2)],
-            "ecmp_gather_steady_throughput_mean": float(tg.mean()),
-            "ecmp_dense_vs_gather_rel": rel, "ecmp_gather_seconds": eg_s,
-            "ecmp_gather_step_ms": eg_s / steps * 1e3,
+            "ecmp_dense_steady_throughput_mean": float(td.mean()),
+            "ecmp_dense_vs_gather_rel": rel, "ecmp_dense_seconds": ed_s,
+            "ecmp_dense_step_ms": ed_s / steps * 1e3,
             "loads_ms_per_call": loads_t, "ksp_lc_rerun_trace": trace,
             "launches": run.launches["sim"]}
 
@@ -3699,7 +3758,14 @@ def main() -> None:
     emit(ecmp_phase(run))
     emit(mptcp_phase(top, run))
     torch.cuda.empty_cache()
-    emit(sim_phase(run))
+    out = sim_phase(run)
+    emit(out)
+    lt = out["loads_ms_per_call"]
+    results["fan_in_loads"] = {
+        "max_abs_err": 0.0, "ms": lt["fan_in"], "timer": "events",
+        "device_ms": lt["fan_in_device"], "plain_ms": lt["plain"],
+        "bound_ms": lt["bound_ms"], "bound_by": "bytes",
+        "library_ms": lt["library_sparse_csr"], "shape": lt["shape"]}
     torch.cuda.empty_cache()
 
     # ---- 5. the bisection -------------------------------------------------- #
@@ -3835,6 +3901,7 @@ def main() -> None:
         "minplus_hops": "src/repro/kernels/minplus.py:61",
         "admission": "src/repro/kernels/admission.py:69",
         "matmul": "src/repro/kernels/power.py:50",
+        "fan_in_loads": "none: the loads-only calls of congestion.py:99",
     }
     sources = {
         "congestion": "src/repro_torch/kernels/csrc/congestion.cu",
@@ -3843,6 +3910,7 @@ def main() -> None:
         "minplus_hops": "src/repro_torch/kernels/csrc/minplus.cu",
         "admission": "src/repro_torch/kernels/csrc/admission.cu",
         "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
+        "fan_in_loads": "src/repro_torch/kernels/csrc/fanin.cu",
     }
     # the path that must launch each kernel; the probe and the bisection
     # solve batched only, the expansion path single instances; every path
@@ -3869,8 +3937,8 @@ def main() -> None:
                           "admission"),
         "ecmp": (apsp_kernel(245), "admission"),
         "mptcp": ("congestion", apsp_kernel(n_sw), "admission"),
-        "sim": ("congestion_batch", apsp_kernel(512), "admission"),
-        "events": ("congestion_batch", apsp_kernel(512), "admission"),
+        "sim": ("fan_in_loads", apsp_kernel(512), "admission"),
+        "events": ("fan_in_loads", apsp_kernel(512), "admission"),
         "families": ("congestion", apsp_kernel(484), "admission"),
         "fabric": (apsp_kernel(FABRIC_CHAIN_PODS), "admission"),
         "ir": tuple(replaces),
@@ -3886,6 +3954,10 @@ def main() -> None:
         for name in names:
             check(launches[path][name] > 0,
                   f"kernel {name} was not launched by the {path} path")
+    # the simulator's loads-only products all take the fan-in kernel
+    for path in ("sim", "events"):
+        check(launches[path]["congestion_batch"] == 0,
+              f"the {path} path launched the dense congestion kernel")
     rows = []
     for name in replaces:
         r = results[name]
@@ -3899,8 +3971,8 @@ def main() -> None:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
-                     **{k: r[k] for k in ("fp32_bound_ms", "dpx_bound_ms")
-                        if k in r}})
+                     **{k: r[k] for k in ("fp32_bound_ms", "dpx_bound_ms",
+                                          "device_ms") if k in r}})
     emit({"phase": "time", "seconds": time.perf_counter() - t_start,
           "aim_s": TIME_BUDGET_S, "ir_examples_seconds": ir_examples_s,
           "ir_examples_aim_s": IR_EXAMPLES_BUDGET_S})

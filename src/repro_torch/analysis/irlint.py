@@ -416,7 +416,7 @@ _SOLVER_DIR_PARTS = ("repro_torch/core/", "repro_torch/sim/",
 _KERNEL_CALLS = frozenset((
     "ops.congestion", "ops.congestion_loads", "ops.minplus", "ops.matmul",
     "ops.minplus_hops", "admission", "minplus_hops", "_congestion",
-    "_minplus", "_minplus_hops", "_matmul",
+    "_minplus", "_minplus_hops", "_matmul", "fan_in_loads",
 ))
 #: parameters through which a function receives a congestion callable
 _CALLABLE_PARAMS = frozenset(("fused", "loads_of"))

@@ -64,6 +64,7 @@ SOLVER_MODULES = (
     "repro_torch.kernels.ops",
     "repro_torch.kernels.admission",
     "repro_torch.kernels.congestion",
+    "repro_torch.kernels.fanin",
     "repro_torch.kernels.minplus",
     "repro_torch.kernels.power",
 )

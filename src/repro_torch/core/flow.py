@@ -37,7 +37,9 @@ position: the ordered fan-in tables or the ``_fold_sum`` halving tree.
 
 ``backend="auto"`` picks via ``kernels.ops.preferred_congestion_backend``
 (size + device): ``dense`` on CUDA while the stacked incidence fits the
-card's budget, ``gather`` beyond it and for CPU batches.
+card's budget, ``gather`` beyond it and for CPU batches; a loads-only
+product (``make_loads_fn_batch``'s callers) is ``gather`` everywhere, on
+CUDA through the fan-in kernel.
 
 Batched solves
 --------------
@@ -70,6 +72,7 @@ from ..analysis.registry import AuditCase, solver_entry
 from ..analysis.contracts import check_path_system_batch, checks_enabled
 from ..device import resolve
 from ..kernels import ops
+from ..kernels.fanin import fan_in_loads, fan_in_table
 from .routing import PathSystem
 
 __all__ = [
@@ -346,7 +349,6 @@ def make_congestion_fn_batch(  # repro-lint: disable=JF100 builds fused, run by 
 def make_loads_fn_batch(  # repro-lint: disable=JF100 builds loads_of, run by entries
     path_edges: torch.Tensor,
     n_slots: int,
-    n_batch: int,
     backend: str,
     slot_gather: np.ndarray | None = None,
     extents: tuple | None = None,
@@ -358,9 +360,12 @@ def make_loads_fn_batch(  # repro-lint: disable=JF100 builds loads_of, run by en
     needs per-slot loads and flow counts but no ``B w`` product.  The
     closure maps (Bt, P) rates to (Bt, S) loads:
 
-    * ``gather`` — the fan-in tables summed left to right
-      (``_ordered_fan_in_sum``), the reference's scatter-add order, equal
-      bit for bit to ``make_congestion_fn_batch``'s loads half;
+    * ``gather`` — the fan-in tables, transposed once to (Bt, D, S), summed
+      left to right by ``fanin.fan_in_loads`` (the fan-in kernel on CUDA,
+      one launch a call; on the CPU the arithmetic of
+      ``_ordered_fan_in_sum``), the reference's scatter-add order, equal bit
+      for bit to ``make_congestion_fn_batch``'s loads half; slots past a
+      member's ``extents`` load exact zeros;
     * ``dense`` — the stacked (Bt, P, S) incidence through
       ``ops.congestion_loads`` (the congestion kernel on CUDA, zero
       prices), over each member's real ``extents=(n_paths, n_slots)`` when
@@ -374,15 +379,11 @@ def make_loads_fn_batch(  # repro-lint: disable=JF100 builds loads_of, run by en
                 "gather backend needs the PathSystemBatch fan-in tables"
             )
         L = path_edges.shape[-1]
-        tab = _columns(slot_gather, dev)
-        pad = torch.zeros((n_batch, 1), dtype=_F32, device=dev)
+        tab = fan_in_table(slot_gather, dev)
+        slots = None if extents is None else extents[1]
 
         def loads_fn(rates):
-            fr = torch.cat([rates.repeat_interleave(L, dim=1), pad], dim=1)
-            loads = _ordered_fan_in_sum(fr, tab)
-            if loads is None:
-                loads = torch.zeros((n_batch, n_slots), dtype=_F32, device=dev)
-            return loads
+            return fan_in_loads(tab, rates, L, slots)
 
         return obs.spanned(_CONGESTION)(loads_fn)
     if backend != "dense":
@@ -404,11 +405,12 @@ def make_loads_fn_batch(  # repro-lint: disable=JF100 builds loads_of, run by en
 
 def _resolve_backend(
     backend: str, n_paths: int, n_slots: int, device: torch.device,
-    n_batch: int = 1,
+    n_batch: int = 1, loads_only: bool = False,
 ) -> str:
     if backend == "auto":
         backend = ops.preferred_congestion_backend(
-            n_paths, n_slots, n_batch=n_batch, device=device
+            n_paths, n_slots, n_batch=n_batch, device=device,
+            loads_only=loads_only,
         )
         obs.counter(f"flow/backend/{backend}").inc()
         return backend

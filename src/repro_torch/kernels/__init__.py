@@ -8,6 +8,7 @@ wrapper                    CUDA source (csrc/)             replaces (repro/...)
 ``minplus.minplus_hops``   ``minplus.cu`` (int16, DPX)     ``kernels/minplus.py``
 ``admission.admission``    ``admission.cu``                ``kernels/admission.py``
 ``power.matmul``           ``matmul.cu``                   ``kernels/power.py``
+``fanin.fan_in_loads``     ``fanin.cu``                    none (loads-only calls)
 =========================  ==============================  =====================
 
 A wrapper launches its kernel on CUDA tensors and uses its plain torch
@@ -20,9 +21,9 @@ thread and the caller's thread are all counted.
 
 from __future__ import annotations
 
-from . import _build, admission, congestion, minplus, ops, power
+from . import _build, admission, congestion, fanin, minplus, ops, power
 
-__all__ = ["admission", "congestion", "minplus", "ops", "power",
+__all__ = ["admission", "congestion", "fanin", "minplus", "ops", "power",
            "launch_counts", "reset_launch_counts"]
 
 #: counter name -> (wrapper module, attribute holding its launch count)
@@ -33,6 +34,7 @@ _COUNTERS = {
     "minplus_hops": (minplus, "hops_launches"),
     "admission": (admission, "launches"),
     "matmul": (power, "launches"),
+    "fan_in_loads": (fanin, "launches"),
 }
 
 
@@ -40,7 +42,7 @@ def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since import or the last reset
     (``congestion`` counts single-incidence calls, ``congestion_batch``
     stacked ones; ``minplus`` the float32 form, ``minplus_hops`` the int16
-    form)."""
+    form; ``fan_in_loads`` the loads-only calls of the fan-in kernel)."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 

@@ -43,6 +43,7 @@ SOURCES = {
     "minplus": "minplus.cu",
     "admission": "admission.cu",
     "matmul": "matmul.cu",
+    "fanin": "fanin.cu",
 }
 
 NVCC_FLAGS = (

@@ -19,6 +19,11 @@ ordered gathers over the padded path table, is answered here by
   the paper-scale probe off the kernel; an 80 GB H100 holds it.)
 * On the CPU: ``gather`` for batches, and for single instances ``dense``
   only for toy sizes, exactly as the reference chooses on its CPU.
+* A loads-only product (``loads_only=True``: the caller consumes no path
+  costs, as the simulator's waterfill) is ``gather`` on every device: its
+  fan-in read (at most 8 P L bytes a member; on CUDA the kernel of
+  ``fanin.py``) beats the dense read (4 P S bytes) whenever S > 2 L, which
+  a network's slot count always is.
 
 ``apsp_minplus`` is APSP by dense min-plus squaring of an f32 matrix on the
 device; ``apsp_minplus_blocked`` keeps the canonical int16 hop matrix on the
@@ -75,13 +80,17 @@ def preferred_congestion_backend(
     dense_budget_bytes: int | None = None,
     n_batch: int = 1,
     device: "str | torch.device" = "cuda",
+    loads_only: bool = False,
 ) -> str:
     """Pick the flow-solver congestion backend ('dense' or 'gather').
 
     ``n_paths`` x ``n_slots`` is the incidence shape (P, S); ``n_batch`` > 1
     is the batched solver asking about a stacked (n_batch, P, S) incidence,
-    whose whole stack must fit the budget.
+    whose whole stack must fit the budget.  ``loads_only`` is a caller that
+    needs ``B^T r`` alone: ``gather`` whatever the size and device.
     """
+    if loads_only:
+        return "gather"
     bytes_needed = 4 * int(n_paths) * int(n_slots) * max(int(n_batch), 1)
     if is_cuda(device):
         budget = (

@@ -15,8 +15,9 @@ different topology seeds, different routings, ragged shapes padded through
 2. **Rate allocation**: iterative max-min waterfilling over path rows with
    flow multiplicities (``_waterfill_core``).  Its link-load inner loop is
    the congestion backends' load half, ``core.flow.make_loads_fn_batch``:
-   the ordered ``gather`` fan-in tables, or ``dense`` — the congestion
-   kernel with zero prices over each member's extents on CUDA.
+   the ordered ``gather`` fan-in tables (on CUDA the fan-in kernel, the
+   ``auto`` choice on every device), or ``dense`` — the congestion kernel
+   with zero prices over each member's extents on CUDA.
 3. **Departures**: flows drain ``rate * dt`` of their remaining size;
    completions record FCT (log2-binned histogram + exact sum/count),
    per-commodity delivered volume, and free their slot.
@@ -283,14 +284,13 @@ class _Tables:
 
     def __init__(self, batch: PathSystemBatch, backend: str,
                  dev: torch.device):
-        B, S = batch.n_batch, batch.s_max
         pe = torch.as_tensor(batch.path_edges, device=dev)
         self.pe = pe
         self.L = pe.shape[-1]
         self.hop_cols = _columns(batch.path_edges, dev)
         self.slot_cols = _columns(batch.slot_gather, dev)
         self.loads_of = make_loads_fn_batch(
-            pe, S, B, backend,
+            pe, batch.s_max, backend,
             batch.slot_gather if backend == "gather" else None,
             extents=None if batch.shared else (
                 batch.n_paths, [ps.n_slots for ps in batch.systems]),
@@ -315,9 +315,10 @@ def waterfill_rates(
     path row — counts may be FRACTIONAL.  The default puts each
     commodity's demand's worth of flows on every one of its paths (the
     MPTCP-subflow saturation population).  ``backend``: ``"auto"``,
-    ``"gather"`` or ``"dense"`` (the congestion kernel's load half on
-    CUDA).  Returns ``(rates, loads)``: per-flow rate per path row
-    (B, p_max) and per-directed-slot loads (B, s_max), as numpy arrays.
+    ``"gather"`` (``auto``'s choice: the fan-in kernel on CUDA) or
+    ``"dense"`` (the congestion kernel's load half on CUDA).  Returns
+    ``(rates, loads)``: per-flow rate per path row (B, p_max) and
+    per-directed-slot loads (B, s_max), as numpy arrays.
     """
     dev = resolve(device)
     batch = _as_batch(systems)
@@ -336,7 +337,7 @@ def waterfill_rates(
         )
     if nflow.shape[1] < P:  # instance rows sit at the front of the envelope
         nflow = np.pad(nflow, ((0, 0), (0, P - nflow.shape[1])))
-    backend = _resolve_backend(backend, P, batch.s_max, dev, n_batch=max(B, 2))
+    backend = _resolve_backend(backend, P, batch.s_max, dev, loads_only=True)
     tabs = _Tables(batch, backend, dev)
     rate, loads = _waterfill_core(
         tabs.loads_of, tabs.hop_cols, torch.as_tensor(nflow, device=dev),
@@ -524,7 +525,7 @@ def _batch_inputs(batch: PathSystemBatch, policy: str, cfg: SimConfig,
             f"max_flows={cfg.max_flows}; raise max_flows or lower "
             "max_arrivals"
         )
-    backend = _resolve_backend(backend, P, S, dev, n_batch=max(B, 2))
+    backend = _resolve_backend(backend, P, S, dev, loads_only=True)
 
     def dev_i64(x):
         return torch.as_tensor(np.asarray(x, np.int64), device=dev)
@@ -863,9 +864,9 @@ def simulate(
     pad-and-stacked on the fly) — B independent instances advanced
     together.  ``workload`` is a ``sim.workloads.Workload``; ``policy`` is
     one of ``POLICIES``.  ``backend`` selects the congestion backend of
-    the waterfilling inner loop (``auto``: ``dense`` — the congestion
-    kernel — on CUDA while the stack fits the card's budget, ``gather``
-    otherwise and on the CPU).
+    the waterfilling inner loop (``auto``: ``gather``, a loads-only
+    product, on every device — on CUDA the fan-in kernel; ``dense`` runs
+    the congestion kernel with zero prices).
 
     ``arrivals`` is an optional pre-drawn stream ``(n_poisson (T, B), comm
     (T, B, A), eleph (T, B, A))`` with ``A = config.max_arrivals``; without
@@ -925,7 +926,7 @@ _IR_SIM_EXEMPT = {
     "flow counts and FCT histogram scatter-add 1.0s, exact in any order "
     "below 2^24 (the nflow and fct_hist lines of _run_steps); the "
     "congestion backend's loads go through make_loads_fn_batch(gather) "
-    "with no scatter in them",
+    "(fanin.fan_in_loads) with no scatter in them",
     "JF104": "two host reads of the largest rank a step, int(rank.max()) "
     "in _ordered_scatter_add, called for comm_off and comm_del; queued in "
     "ROADMAP.md for a perf PR after a sim cell",
@@ -956,7 +957,8 @@ def _ir_cases_waterfill():
         return make
 
     return [
-        AuditCase(label="gather", make=mk("gather"), backend="gather"),
+        AuditCase(label="gather", make=mk("gather"), backend="gather",
+                  kernels=("fan_in_loads",)),
         AuditCase(label="dense", make=mk("dense"), backend="dense",
                   exempt=_IR_DENSE_EXEMPT, budget=False,
                   kernels=("congestion_batch",)),
@@ -990,7 +992,7 @@ def _ir_cases_run_steps():
 
     return [
         AuditCase(label="ecmp-gather", make=mk("gather"), backend="gather",
-                  exempt=_IR_SIM_EXEMPT),
+                  exempt=_IR_SIM_EXEMPT, kernels=("fan_in_loads",)),
         AuditCase(label="ecmp-dense", make=mk("dense"), backend="dense",
                   exempt={**_IR_DENSE_EXEMPT, **_IR_SIM_EXEMPT},
                   budget=False, kernels=("congestion_batch",)),

@@ -14,7 +14,10 @@ min does not depend on order); congestion and matmul are held to rtol 1e-5
 against the plain product because the two sum in different orders; batch
 members of one congestion call, with or without extents, equal the single
 call on their unpadded incidence bit for bit (the kernel's sums run in an
-order fixed by position), and so does a batched dense MW solve.  lambda_2 on the card
+order fixed by position), and so does a batched dense MW solve.  The fan-in
+loads kernel equals its plain version bit for bit (the same additions in the
+same order), and a simulation on it stays within 2e-6 of the CPU's, as the
+card's MPTCP and waterfill runs do.  lambda_2 on the card
 agrees with the CPU run from the same start block within rtol 1e-4, and a
 delta update on the card equals a rebuild exactly.
 """
@@ -42,6 +45,7 @@ from repro_torch.core.routing import clear_routing_cache
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.admission import admission, admission_ref
 from repro_torch.kernels.congestion import congestion, congestion_ref
+from repro_torch.kernels.fanin import _ir_operands, fan_in_loads, fan_in_table
 from repro_torch.kernels.minplus import (
     INT16_INF,
     minplus,
@@ -371,6 +375,112 @@ def test_congestion_loads_extents_on_card(dev):
         assert torch.equal(one, loads[i, :si])
 
 
+def _bits(x):
+    return x.contiguous().view(torch.int32).cpu()
+
+
+def _cell_operands(dev):
+    """The sim cell's fan-in table: 8 members of RRG(512, 24, 18), k = 8,
+    slack 4, with their slot extents and uniform rates, zero on padded
+    rows (as in the engine) and on a tenth of the real ones."""
+    from repro_torch.core import build_path_system_batch
+
+    tops = [jellyfish(512, 24, 18, seed=s) for s in range(8)]
+    comms = [random_permutation_traffic(t, seed=s) for s, t in enumerate(tops)]
+    batch = build_path_system_batch(tops, comms, k=8, max_slack=4,
+                                    device=dev)
+    rng = np.random.default_rng(0)
+    rates = rng.uniform(0.5, 1.5, (batch.n_batch, batch.p_max))
+    rates[rng.random(rates.shape) < 0.1] = 0.0
+    for i, p in enumerate(batch.n_paths.tolist()):
+        rates[i, p:] = 0.0
+    return (fan_in_table(batch.slot_gather, dev),
+            torch.from_numpy(rates.astype(np.float32)).to(dev),
+            batch.path_edges.shape[-1], [ps.n_slots for ps in batch.systems])
+
+
+def _fan_in_case(dev, case):
+    if case == "cell":
+        return _cell_operands(dev)
+    if case == "shared":
+        table, rates, L, _ = _ir_operands(dev, shared=True,
+                                          shape=(700, 4, 2050),
+                                          slots=(2050,) * 5)
+        return table, rates, L, None
+    if case == "members-130":  # past the launch's 128 members
+        return _ir_operands(dev, shape=(20, 3, 70),
+                            slots=tuple(i % 71 for i in range(130)), seed=3)
+    # ragged: a member with no rows, extents off every multiple of the
+    # block, empty slots, zero and -0.0 rates (rows as long as D keep -0.0:
+    # the member with the fewest slots has the widest rows)
+    table, rates, L, slots = _ir_operands(
+        dev, shape=(300, 4, 4100), slots=(4100, 4097, 0, 703, 129), seed=1)
+    rates[4] = -0.0
+    rates[3, ::3] = 0.0
+    return table, rates, L, slots
+
+
+@pytest.mark.parametrize("case", ["cell", "ragged", "shared", "members-130"])
+def test_fan_in_kernel_equals_plain_bit_for_bit(dev, case):
+    """The fan-in kernel against its plain version on the same operands,
+    bit for bit (``.view(torch.int32)``): every real slot, the exact zeros
+    past each member's extent, the signs of zero sums."""
+    table, rates, L, slots = _fan_in_case(dev, case)
+    before = kernels.launch_counts()["fan_in_loads"]
+    got = fan_in_loads(table, rates, L, slots)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fan_in_loads"] == before + 1
+    want = fan_in_loads(table.cpu(), rates.cpu(), L, slots)
+    assert torch.equal(_bits(got), _bits(want))
+    if slots is not None:
+        for i, s in enumerate(slots):
+            assert torch.equal(_bits(got[i, s:]), _bits(torch.zeros(
+                got.shape[1] - s)))
+    if case == "ragged":  # -0.0 survives only in rows as long as D
+        full = (table[4].cpu() < rates.shape[1] * L).all(dim=0)
+        assert full.any()
+        assert torch.signbit(got[4].cpu()[full]).all()
+        assert not torch.signbit(got[4].cpu()[~full]).any()
+
+
+def test_simulate_ksp_lc_on_fan_in_kernel_matches_cpu(dev):
+    """``ksp_lc`` under ``auto`` on the card: every loads call is one launch
+    of the fan-in kernel and none of the dense one; from one numpy-drawn
+    stream, admissions equal the CPU's ``gather`` run and every
+    accumulator lies within 2e-6 of it."""
+    from repro_torch import obs
+    from repro_torch.analysis.contracts import check_sim_state
+    from repro_torch.sim import SimConfig, simulate, steady_poisson
+
+    batch = _sim_systems(dev)
+    T, A = 40, 8
+    wl = steady_poisson(T, rate=6.0, size=12.0)
+    cfg = SimConfig(max_flows=512, max_arrivals=A, wf_iters=6)
+    rng = np.random.default_rng(9)
+    n = rng.poisson(6.0, (T, batch.n_batch))
+    comm = np.stack([rng.integers(0, ps.n_commodities, (T, A))
+                     for ps in batch.systems], axis=1)
+    stream = (n, comm, np.zeros(comm.shape, bool))
+    calls = obs.counter("sim/loads_calls")
+    before, c0 = kernels.launch_counts(), calls.value
+    card = simulate(batch, wl, policy="ksp_lc", config=cfg, arrivals=stream,
+                    device=dev)
+    after = kernels.launch_counts()
+    assert card.backend == "gather"
+    assert calls.value - c0 > 0
+    assert after["fan_in_loads"] - before["fan_in_loads"] == calls.value - c0
+    assert after["congestion_batch"] == before["congestion_batch"]
+    check_sim_state(card)
+    cpu = simulate(batch, wl, policy="ksp_lc", config=cfg, arrivals=stream,
+                   backend="gather", device="cpu")
+    for f in ("admitted", "drops", "comm_offered"):
+        assert np.array_equal(getattr(card, f), getattr(cpu, f)), f
+    for f in ("throughput", "active", "fct_hist", "fct_sum", "fct_count",
+              "comm_delivered", "util_sum", "inflight"):
+        np.testing.assert_allclose(getattr(card, f), getattr(cpu, f),
+                                   atol=2e-6, err_msg=f)
+
+
 def _sim_systems(dev):
     from repro_torch.core import build_path_system_batch
 
@@ -474,7 +584,8 @@ def _event_instances():
 @pytest.mark.parametrize("policy", ["ksp_lc", "ecmp"])
 def test_simulate_events_empty_schedule_on_card(dev, policy):
     """CT-segment on the card: an empty schedule, whole or split by
-    ``max_seg``, equals ``simulate`` on the dense kernel bit for bit."""
+    ``max_seg``, equals ``simulate`` on the fan-in kernel (``auto``'s
+    choice for the loads-only product) bit for bit."""
     from repro_torch.sim import (
         SimConfig,
         simulate,
@@ -488,14 +599,16 @@ def test_simulate_events_empty_schedule_on_card(dev, policy):
     cfg = SimConfig(max_flows=512, max_arrivals=8, wf_iters=6)
     base = simulate(systems, wl, policy=policy, config=cfg, seed=3,
                     device=dev)
-    assert base.backend == "dense"
+    assert base.backend == "gather"
     for max_seg in (0, 15):
-        before = kernels.launch_counts()["congestion_batch"]
+        before = kernels.launch_counts()
         ev = simulate_events(tops, comms, [], wl, systems=systems,
                              policy=policy, config=cfg, seed=3,
                              max_seg=max_seg, device=dev)
-        assert kernels.launch_counts()["congestion_batch"] > before
-        assert ev.result.backend == "dense"
+        after = kernels.launch_counts()
+        assert after["fan_in_loads"] > before["fan_in_loads"]
+        assert after["congestion_batch"] == before["congestion_batch"]
+        assert ev.result.backend == "gather"
         for f in _EVENT_FIELDS:
             assert np.array_equal(getattr(ev.result, f),
                                   getattr(base, f)), (max_seg, f)

@@ -133,12 +133,15 @@ def test_solver_entry_rejects_bad_kind():
 
 def test_every_kernel_and_dense_case_names_its_launch_counter():
     """On a card the launch counters are the only evidence a case reached
-    its kernel: every kernel entry's case and every dense solver case
-    names the counter it must move."""
+    its kernel: every kernel entry's case, every dense solver case and
+    every gather case of the simulator (its loads-only product is the
+    fan-in kernel) names the counter it must move."""
     for name, e in registered_entries().items():
         for c in e.cases():
             kernel_entry = ".kernels." in name and not name.endswith("_ref")
-            if kernel_entry or c.backend == "dense":
+            if name.startswith("repro_torch.sim.") and c.backend == "gather":
+                assert c.kernels == ("fan_in_loads",), (name, c.label)
+            elif kernel_entry or c.backend == "dense":
                 assert c.kernels, (name, c.label)
             else:
                 assert not c.kernels, (name, c.label)

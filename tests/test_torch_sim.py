@@ -211,17 +211,17 @@ def test_loads_fn_gather_dense_and_fused():
     rates = torch.from_numpy(rng.random((B, batch.p_max)).astype(np.float32))
     zeros = torch.zeros((B, S))
     fused = make_congestion_fn_batch(pe, S, B, "gather", batch.slot_gather)
-    gather = make_loads_fn_batch(pe, S, B, "gather", batch.slot_gather)
+    gather = make_loads_fn_batch(pe, S, "gather", batch.slot_gather)
     np.testing.assert_array_equal(gather(rates).numpy(),
                                   fused(rates, zeros)[0].numpy())
     ext = (batch.n_paths, [ps.n_slots for ps in batch.systems])
-    dense = make_loads_fn_batch(pe, S, B, "dense", extents=ext)
+    dense = make_loads_fn_batch(pe, S, "dense", extents=ext)
     np.testing.assert_allclose(dense(rates).numpy(), gather(rates).numpy(),
                                rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError):
-        make_loads_fn_batch(pe, S, B, "gather")
+        make_loads_fn_batch(pe, S, "gather")
     with pytest.raises(ValueError):
-        make_loads_fn_batch(pe, S, B, "scatter", batch.slot_gather)
+        make_loads_fn_batch(pe, S, "scatter", batch.slot_gather)
 
 
 def test_congestion_loads_extents_equal_single_calls():
