@@ -15,13 +15,16 @@ Checked, on a sample of the window's chains drawn from the seed, against
 ``reference/``: every grown topology (edge for edge, from the frozen
 construction), every delta routing table against the reference's full
 enumeration, each warm solve's ``alpha_gap`` (as the probe's),
-``alpha_shortfall``: how far the chain's alphas fall short of the
-reference's own chain on average over its steps (a cold float64 MW on the
-base, then each step's warm MW from the reference's previous solution,
-started as ``reference/warm.py`` states; the mean, since each step's gap
-swings by rounding either way while a weaker solve lowers every step),
-and ``lambda2_gap``: the relative distance of each lambda_2 from the
-reference's float64 power iteration from the same start block.
+``alpha_shortfall``: how far the checked chains' alphas fall short of the
+reference's own chains, on average over every checked step (a cold float64
+MW on the base, then each step's warm MW from the reference's previous
+solution, started as ``reference/warm.py`` states; the mean over all the
+checked chains' steps, since each step's gap swings by rounding either way,
+by up to about half a percent, while a weaker solve lowers every step), and
+``lambda2_gap``: the relative distance of each lambda_2 from the
+reference's float64 power iteration from the same start block.  The
+reference's MW solves run on the host, where their sums have one order, so
+a seed's check reads the same every time.
 """
 
 from __future__ import annotations
@@ -45,7 +48,11 @@ from portbench.reference.frozen import traffic as ftraffic
 
 #: Limits (PERF.md gives the readings each was set from).
 LAMBDA2_GAP_LIMIT = 1e-5
-ALPHA_SHORTFALL_LIMIT = 4e-3
+ALPHA_SHORTFALL_LIMIT = 3e-3
+#: Where the reference's MW solves run: the host's float64 sums keep one
+#: order, where the card's scatter-adds race and move an alpha by up to
+#: some tenths of a percent from run to run.
+REF_DEVICE = "cpu"
 
 
 class Driver:
@@ -169,12 +176,12 @@ class Driver:
         comm0 = ftraffic.permutation_commodities(base, perm0)
         routes0 = self._routes(base, comm0)
         dist0 = paths.hop_distances(base.n_switches, base.edges)
-        cold = mw.mw_reference(routes0, tr["cold_iters"], device=self.dev)
+        cold = mw.mw_reference(routes0, tr["cold_iters"], device=REF_DEVICE)
+        signed = []
         for i in picks:
             rec = self.records[i]
             wrong = False
             ua = ul = 0.0
-            signed = []
             erng = np.random.default_rng(rec["seed"])
             cur, perm, comm_cur, routes, dist, rates = (
                 base, perm0, comm0, routes0, dist0, cold["rates"])
@@ -194,7 +201,7 @@ class Driver:
                 x0, kept = warm_split(cur, comm_cur, routes, rates, new, comm,
                                       ref, cfg["k"], cfg["max_slack"], dist,
                                       dist_new)
-                sol = mw.mw_reference(ref, tr["warm_iters"], device=self.dev,
+                sol = mw.mw_reference(ref, tr["warm_iters"], device=REF_DEVICE,
                                       x_init=x0)
                 cur, comm_cur, routes, dist, rates = (new, comm, ref, dist_new,
                                                       sol["rates"])
@@ -219,11 +226,12 @@ class Driver:
                 ul = max(ul, g if np.isfinite(g) else float("inf"))
                 self.notes["lambda2"].append(st["lambda2"])
                 self.notes["lambda2_gap"].append(g)
-            us = max(0.0, float(np.mean(signed))) if signed else 0.0
-            a_gap, a_short, l_gap = max(a_gap, ua), max(a_short, us), max(l_gap, ul)
+            a_gap, l_gap = max(a_gap, ua), max(l_gap, ul)
             failed += int(wrong or not ua <= ALPHA_GAP_LIMIT
-                          or not us <= ALPHA_SHORTFALL_LIMIT
                           or not ul <= LAMBDA2_GAP_LIMIT)
+        a_short = max(0.0, float(np.mean(signed))) if signed else 0.0
+        if not a_short <= ALPHA_SHORTFALL_LIMIT:
+            failed = take  # the mean speaks for every checked chain
         checks = [("topology_mismatch", float(bad_top), 0.0),
                   ("path_mismatch", float(bad_paths), 0.0),
                   ("alpha_gap", a_gap, ALPHA_GAP_LIMIT),

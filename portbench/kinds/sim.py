@@ -144,10 +144,9 @@ class Driver:
             one = roofline.call_work(int(np.asarray(ps.path_len).sum()),
                                      ps.n_paths, ps.n_slots, fused=False)
             work.add(one, calls * steps)
-        launches = self.kernels.launch_counts()
         return {"steps": steps, "spans": dict(self.spans.seconds),
-                "loads_launches": launches.get("congestion_batch", 0),
-                "congestion_work": work, "launches": launches}
+                "congestion_work": work,
+                "launches": self.kernels.launch_counts()}
 
     def release(self) -> None:
         self.tables = [tables(ps) for ps in self.batch.systems]
