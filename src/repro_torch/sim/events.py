@@ -36,6 +36,14 @@ except the engine's own exact counts.
 
 Volume conservation (``check_sim_state`` behind ``REPRO_CHECK=1``):
 ``offered == delivered + in-flight + blackholed`` per instance.
+
+Spans and counters (host time only, INVARIANTS.md OB-1): each boundary
+with events is the span ``sim/reroute``; inside it each event's
+application to the whole batch (producer, delta routing, the composed row
+and slot maps) is ``sim/apply_event`` with attribute ``kind``, and the
+carry's migration is ``sim/migrate``.  ``sim/events/<kind>`` counts the
+events applied, ``sim/migrations`` the migrated boundaries and
+``sim/migrate/{survived,reselected,killed}`` their flows.
 """
 
 from __future__ import annotations
@@ -555,34 +563,38 @@ def simulate_events(
                     for i in range(B)
                 ]
                 for ev in evs:
-                    for i in range(B):
-                        top_new, ps_new = _apply_event(
-                            ev, tops[i], systems[i], comms[i], i, heal_store,
-                            dev,
-                        )
-                        rm_step = ps_new.row_map
-                        if rm_step is None:  # full rebuild: all rows fresh
-                            rm_tot[i] = np.full(ps_new.n_paths, -1, np.int64)
-                        else:
-                            rm_step = np.asarray(rm_step, np.int64)
-                            nt = np.full(len(rm_step), -1, np.int64)
-                            ok = rm_step >= 0
-                            nt[ok] = rm_tot[i][rm_step[ok]]
-                            rm_tot[i] = nt
-                        sm_step = _slot_map(tops[i], top_new)
-                        st = np.full(len(sm_tot[i]), -1, np.int64)
-                        ok = sm_tot[i] >= 0
-                        st[ok] = sm_step[sm_tot[i][ok]]
-                        sm_tot[i] = st
-                        tops[i], systems[i] = top_new, ps_new
+                    obs.counter(f"sim/events/{ev.kind}").inc()
+                    with obs.span("sim/apply_event", kind=ev.kind):
+                        for i in range(B):
+                            top_new, ps_new = _apply_event(
+                                ev, tops[i], systems[i], comms[i], i,
+                                heal_store, dev,
+                            )
+                            rm_step = ps_new.row_map
+                            if rm_step is None:  # full rebuild: rows fresh
+                                rm_tot[i] = np.full(ps_new.n_paths, -1,
+                                                    np.int64)
+                            else:
+                                rm_step = np.asarray(rm_step, np.int64)
+                                nt = np.full(len(rm_step), -1, np.int64)
+                                ok = rm_step >= 0
+                                nt[ok] = rm_tot[i][rm_step[ok]]
+                                rm_tot[i] = nt
+                            sm_step = _slot_map(tops[i], top_new)
+                            st = np.full(len(sm_tot[i]), -1, np.int64)
+                            ok = sm_tot[i] >= 0
+                            st[ok] = sm_step[sm_tot[i][ok]]
+                            sm_tot[i] = st
+                            tops[i], systems[i] = top_new, ps_new
                 batch = PathSystemBatch.from_systems(list(systems))
                 inp = _batch_inputs(batch, policy, cfg, backend, dev)
                 if carry is not None:
-                    carry, rec = _migrate_carry(
-                        carry, old_batch, old_systems, systems, batch, inp,
-                        comms, rm_tot, sm_tot, lag, cfg, policy, g_del,
-                        g_off, gdum, dev,
-                    )
+                    with obs.span("sim/migrate"):
+                        carry, rec = _migrate_carry(
+                            carry, old_batch, old_systems, systems, batch,
+                            inp, comms, rm_tot, sm_tot, lag, cfg, policy,
+                            g_del, g_off, gdum, dev,
+                        )
                     rec["step"] = t0
                     rec["kinds"] = [e.kind for e in evs]
                     rec["tags"] = [e.tag for e in evs]

@@ -8,7 +8,9 @@
 * The simulator counts its steps, loads products and blocking host reads
   once per ``_run_steps`` call: 2 x ``wf_iters`` + 3 loads calls and 2
   host reads a step under either backend; ``simulate_events`` counts each
-  step once.
+  step once, spans each event's application (``sim/apply_event``, with its
+  kind) and each migration (``sim/migrate``) inside the boundary's
+  ``sim/reroute``, and counts its events by kind.
 * The batched MW adds its members' iterations to ``mw/iters`` and its
   solves to ``mw/solves``; ``flow/backend/<name>`` counts each ``auto``
   resolution.
@@ -160,6 +162,51 @@ def test_simulate_events_counts_each_step_once():
     assert snap["sim/loads_calls"] == 20 * (2 * cfg.wf_iters + 3)
 
 
+def _event_schedule():
+    """Every event kind the benchmark's event cell runs, two of them at
+    one step (one boundary, two applications)."""
+    return [PS.Event(step=5, kind="fail_links", n_links=2, seed=1, tag="f"),
+            PS.Event(step=10, kind="heal_links", heal_of="f"),
+            PS.Event(step=15, kind="expand", grow=2, seed=3),
+            PS.Event(step=15, kind="fail_links", n_links=1, seed=4)]
+
+
+def _events_run():
+    tops, comms, _ = _systems()
+    res = PS.simulate_events(
+        tops, comms, _event_schedule(),
+        PS.steady_poisson(20, rate=3.0, size=10.0), k=4, policy="ksp_lc",
+        config=PS.SimConfig(max_flows=128, max_arrivals=6, wf_iters=4),
+        seed=5, device=CPU)
+    r = res.result
+    return [r.throughput, r.active, r.blackholed, r.comm_delivered,
+            r.comm_offered, r.fct_sum, r.blackholed_total, r.inflight]
+
+
+def test_simulate_events_spans_each_event_and_migration():
+    """Inside each boundary's ``sim/reroute``: one ``sim/apply_event`` an
+    event, with its kind, and one ``sim/migrate``; ``sim/events/<kind>``
+    counts the schedule's events."""
+    with _tracing(True):
+        _events_run()
+        spans = obs.get_spans()
+        snap = obs.snapshot()
+    by_id = {sp.span_id: sp for sp in spans}
+    applied = [sp for sp in spans if sp.name == "sim/apply_event"]
+    moved = [sp for sp in spans if sp.name == "sim/migrate"]
+    reroutes = [sp for sp in spans if sp.name == "sim/reroute"]
+    assert [sp.attrs["kind"] for sp in applied] == [
+        e.kind for e in _event_schedule()]
+    assert len(moved) == len(reroutes) == 3
+    for sp in applied + moved:
+        assert by_id[sp.parent_id].name == "sim/reroute"
+    assert [by_id[sp.parent_id].attrs["step"] for sp in moved] == [5, 10, 15]
+    assert {k: v for k, v in snap.items() if k.startswith("sim/events/")} == {
+        "sim/events/fail_links": 2, "sim/events/heal_links": 1,
+        "sim/events/expand": 1}
+    assert snap["sim/migrations"] == 3
+
+
 @pytest.mark.parametrize("target", [None, 0.5])
 def test_batched_mw_counts_its_members_iterations(target):
     _, _, systems = _systems(n_inst=3)
@@ -208,7 +255,8 @@ def _batch_run():
     return [r.rates for r in res] + [np.array([r.alpha for r in res])]
 
 
-@pytest.mark.parametrize("run", [_expand_chain, _sim_run, _batch_run])
+@pytest.mark.parametrize("run", [_expand_chain, _sim_run, _batch_run,
+                                 _events_run])
 def test_traced_run_equals_untraced(run):
     with _tracing(False):
         plain = run()
